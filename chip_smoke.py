@@ -5,27 +5,45 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-1. Builds the hand-written kernels from ``src/repro_torch/kernels/csrc``
-   with ``nvcc`` and holds them against the plain COO product and their
-   plain PyTorch versions at the kernel tests' small shapes (balanced,
-   naive, blocked with evil rows, row-reordered).
+Builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
+``nvcc`` (one process per source, all started together), then:
+
+1. Holds the SpMM kernels against the plain COO product and their plain
+   PyTorch versions at the kernel tests' small shapes (balanced, naive,
+   blocked with evil rows, row-reordered).
+1b. Holds the flash-attention kernel against its plain version over the JAX
+   kernel tests' sweep (GQA, Sq < Sk, ragged tiles, causal on and off,
+   windows 8 and 24, bf16) and at D 64 and 128 with S 1000.
 2. Serves 3 batches of 4 requests on the full-width ``reddit`` graph
    (232,965 nodes, 602 features, hidden 128, 41 classes) through the port's
-   main path — ``registry.get_executor`` → ``ScheduleExecutor.forward_batch``
-   — with the launch counts reset just before and read just after, and
+   GCN path — ``registry.get_executor`` → ``ScheduleExecutor.forward_batch``
+   — with the SpMM launch counts reset just before and read just after, and
    holds every request's logits against the plain COO forward.
-3. Holds each kernel against its plain version at the main path's shapes
-   and times kernel, plain version and ``torch.sparse.mm`` on the CSR
+3. Holds each SpMM kernel against its plain version at the GCN path's
+   shapes and times kernel, plain version and ``torch.sparse.mm`` on the CSR
    adjacency (a yardstick the port never calls) with CUDA events.
+4. Serves qwen2-0.5b at full width (24 layers, d_model 896, vocab 151,936;
+   seeded random weights, f32) through ``ServeEngine.generate``: 4 prompts of
+   2048, 1536, 1024 and 512 seeded random tokens (left-padded to 2048),
+   ``max_seq`` 2080, 32 new tokens; a warm-up run, then a timed run with the
+   attention launch count reset just before and read just after (one launch
+   per layer's prefill). Holds the prefill and every decode step's logits
+   (teacher-forced on the same tokens) against the same engine with the
+   plain attention, and the tokens wherever the plain path's top two logits
+   are further apart than the tolerance.
+5. Times the flash kernel, its plain version and
+   ``scaled_dot_product_attention`` (a yardstick the port never calls) at
+   the prefill's shape: B 4, S 2048, H 14, Hkv 2, D 64, causal, f32.
 
 Float32 matmuls and cuDNN run without TF32 (both flags are set False), so
-every float32 product is full float32. Tolerances: 1e-4·max(1, |gold|max)
-for float32, 3e-2·max(1, |gold|max) for bfloat16 — the JAX package's kernel
-test tolerances.
+every float32 product is full float32. Tolerances, each scaled by
+max(1, |gold|max): SpMM 1e-4 (f32) and 3e-2 (bf16), attention 2e-5 (f32)
+and 5e-2 (bf16, unscaled) — the JAX package's kernel test tolerances — and
+LM logits 2e-3, its decode-vs-forward tolerance.
 
-Prints a ``{"kernels": [...]}`` line, a ``{"serving": ...}`` line, the
-window kernel's all-gathers-miss bound per kdim, the card's name and power
-limit, and as its last line
+Prints a ``{"kernels": [...]}`` line, a ``{"serving": ...}`` line, a
+``{"lm_serving": ...}`` line, the window kernel's all-gathers-miss bound per
+kdim, the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device, or without the rest of the repository, it exits
 non-zero and prints no result.
@@ -50,6 +68,15 @@ REPLACES = {
     "spmm_epilogue": "src/repro/core/schedule.py:898",
 }
 BATCHES, BATCH_SIZE, KEEP = 3, 4, 0.9
+# LM serving: qwen2-0.5b prompts, cache length, new tokens, logits tolerance
+LM_ARCH, LM_PROMPTS, LM_MAX_SEQ, LM_NEW, LM_TOL = (
+    "qwen2-0.5b", (2048, 1536, 1024, 512), 2080, 32, 2e-3)
+# the flash kernel's checks: (b, sq, sk, h, hkv, d), the JAX kernel tests'
+# shapes then the configs' head widths at a length no tile divides
+ATTN_SHAPES = [(2, 32, 32, 4, 4, 16), (1, 48, 48, 8, 2, 32), (2, 16, 64, 4, 1, 16),
+               (1, 40, 40, 2, 2, 16), (2, 1000, 1000, 4, 2, 64),
+               (2, 1000, 1000, 4, 1, 128)]
+ATTN_MASKS = [(True, None), (False, None), (True, 8), (True, 24), (False, 24)]
 
 
 def tol(gold, dtype) -> float:
@@ -323,6 +350,207 @@ def phase_kernels(ds, ex, launches):
     return kernels, all_miss
 
 
+def attn_tol(gold, dtype) -> float:
+    import torch
+
+    if dtype == torch.float32:
+        return 2e-5 * max(1.0, float(gold.abs().max()))
+    return 5e-2
+
+
+def phase_attention_small(dev):
+    """The flash kernel vs its plain version (on f32 copies of the same
+    inputs) over the sweep. Returns (cases, max |err| in f32)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_attention_cuda as tfa
+
+    cases, max_err = 0, 0.0
+    for shape in ATTN_SHAPES:
+        rng = np.random.default_rng(sum(shape))
+        b, sq, sk, h, hkv, d = shape
+        base = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+                for s in ((b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, d))]
+        for causal, window in ATTN_MASKS:
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = (t.to(dtype) for t in base)
+                got = tfa.flash_attention(q, k, v, causal=causal, window=window)
+                gold = tfa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                                 causal=causal, window=window)
+                err = float((got.float() - gold).abs().max())
+                if got.dtype != dtype or not err <= attn_tol(gold, dtype):
+                    raise AssertionError(
+                        f"flash_attention {shape} causal={causal} window={window} "
+                        f"{dtype}: max |err| {err} > {attn_tol(gold, dtype)}")
+                if dtype == torch.float32:
+                    max_err = max(max_err, err)
+                cases += 1
+    torch.cuda.synchronize()
+    return cases, max_err
+
+
+def device_split(fn):
+    """Device ms of ``fn`` by kernel class under ``torch.profiler``, and the
+    number of device operations it ran (kernels, copies, fills)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+    split, ops = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}, 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        key = e.key.lower()
+        kind = ("flash_attention" if "flash_attention_kernel" in key else "matmul"
+                if any(w in key for w in ("gemm", "gemv", "xmma", "cutlass")) else "other")
+        split[kind] += e.self_device_time_total / 1e3
+        ops += e.count
+    return split, ops
+
+
+def phase_lm(dev):
+    """LM serving at full width through ``ServeEngine.generate``; returns
+    the ``lm_serving`` record and the main path's attention launch count."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention_cuda as tfa
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.transformer_serve import ServeEngine
+
+    cfg = configs.get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = tr.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in LM_PROMPTS]
+    eng = ServeEngine(cfg, params, max_seq=LM_MAX_SEQ, device=dev)
+    t0 = time.perf_counter()
+    eng.generate(prompts, LM_NEW)  # warm-up
+    warm_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    tfa.reset_launches()
+    t0 = time.perf_counter()
+    toks, logits = eng.run(prompts, LM_NEW)
+    total_s = time.perf_counter() - t0
+    launches = tfa.LAUNCHES["flash_attention"]
+    timing = dict(eng.last_timing)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if launches != cfg.n_layers:
+        raise AssertionError(f"prefill launched the flash kernel {launches} times; "
+                             f"expected one per layer ({cfg.n_layers})")
+    if logits.shape != (len(prompts), LM_NEW, cfg.vocab) or not torch.isfinite(
+            logits).all():
+        raise AssertionError(f"logits {tuple(logits.shape)} are malformed or non-finite")
+
+    # device time of the prefill alone, then of the prefill and 2 decode steps
+    pre, pre_ops = device_split(lambda: eng.run(prompts, 1))
+    both, both_ops = device_split(lambda: eng.run(prompts, 3))
+    dec = {k: (both[k] - pre[k]) / 2 for k in pre}
+
+    new = torch.tensor([t[-LM_NEW:] for t in toks], device=dev)
+    plain = ServeEngine(cfg, params, max_seq=LM_MAX_SEQ, device=dev, backend="torch")
+    _, gold = plain.run(prompts, LM_NEW, forced=new)
+    tol_lm = LM_TOL * max(1.0, float(gold.abs().max()))
+    err = (logits - gold).abs().amax(dim=(0, 2))  # per step
+    if not float(err.max()) <= tol_lm:
+        raise AssertionError(f"LM logits: max |err| {float(err.max())} > {tol_lm}")
+    top2 = gold.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > tol_lm
+    mismatch = decided & (gold.argmax(-1) != new)
+    if bool(mismatch.any()):
+        raise AssertionError(f"{int(mismatch.sum())} generated tokens differ from the "
+                             "plain path where its top two logits are apart")
+    n_new = len(prompts) * LM_NEW
+    steps = timing["decode_steps"]
+    record = {
+        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads, "d_head": cfg.head_dim,
+        "vocab": cfg.vocab, "params": tr.count_params(cfg), "dtype": "float32",
+        "prompt_lens": list(LM_PROMPTS), "padded_len": max(LM_PROMPTS),
+        "max_seq": LM_MAX_SEQ, "new_tokens": LM_NEW,
+        "prefill_ms": timing["prefill_s"] * 1e3,
+        "decode_ms_per_token": timing["decode_s"] * 1e3 / steps,
+        "generate_ms": total_s * 1e3,
+        "tokens_per_s": n_new / total_s,
+        "decode_tokens_per_s": len(prompts) * steps / timing["decode_s"],
+        "prefill_tokens_per_s": len(prompts) * max(LM_PROMPTS) / timing["prefill_s"],
+        "attention_launches": launches,
+        "max_abs_err_prefill": float(err[0]),
+        "max_abs_err_decode": float(err[1:].max()),
+        "prefill_device_ms": pre, "decode_device_ms_per_step": dec,
+        "decode_device_ops_per_step": (both_ops - pre_ops) / 2,
+        "decode_device_busy": sum(dec.values()) / (timing["decode_s"] * 1e3 / steps),
+        "tolerance": tol_lm, "tokens_decided": int(decided.sum()),
+        "tokens_total": n_new, "peak_gb": peak_gb, "init_s": init_s,
+        "warmup_generate_s": warm_s,
+    }
+    del params, eng, plain, logits, gold
+    torch.cuda.empty_cache()
+    return record, launches
+
+
+def visible_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """(query, key) pairs the masks leave visible: what the kernel must do."""
+    import numpy as np
+
+    qpos = np.arange(sq) + (sk - sq)
+    hi = np.minimum(qpos + 1, sk) if causal else np.full(sq, sk)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(sq, np.int64)
+    return int(np.clip(hi - lo, 0, None).sum())
+
+
+def phase_attention_time(dev, launches, small_err):
+    """The flash kernel vs its plain version and the library call at the
+    prefill's shape; returns its ``kernels`` entry, whose error also covers
+    phase 1b's f32 cases (``small_err``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention_cuda as tfa
+
+    cfg_b, (s, h, hkv, d) = len(LM_PROMPTS), (max(LM_PROMPTS), 14, 2, 64)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn((cfg_b, s, h, d), generator=gen, device=dev)
+    k = torch.randn((cfg_b, s, hkv, d), generator=gen, device=dev)
+    v = torch.randn((cfg_b, s, hkv, d), generator=gen, device=dev)
+    got = tfa.flash_attention(q, k, v, causal=True)
+    gold = tfa.flash_attention_plain(q, k, v, causal=True)
+    err = float((got - gold).abs().max())
+    if not err <= attn_tol(gold, torch.float32):
+        raise AssertionError(f"flash_attention at the prefill shape: max |err| {err}")
+    lib = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                         v.transpose(1, 2), is_causal=True,
+                                         enable_gqa=True).transpose(1, 2)
+    lib_diff = float((lib - gold).abs().max())
+    del got, gold, lib
+    ms = timed_ms(lambda: tfa.flash_attention(q, k, v, causal=True), 20)
+    plain_ms = timed_ms(lambda: tfa.flash_attention_plain(q, k, v, causal=True), 3)
+    lib_ms = timed_ms(lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+        enable_gqa=True), 20)
+    n_bytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    flops = 4 * d * visible_pairs(s, s, True, None) * cfg_b * h
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_F32_FLOPS * 1e3
+    return {
+        "name": "flash_attention", "route": "cuda", "source": tfa.SOURCE,
+        "replaces": tfa.REPLACES, "launches": launches,
+        "max_abs_err": max(err, small_err),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": lib_ms, "library_max_abs_diff": lib_diff,
+        "flops": flops, "bytes": n_bytes,
+        "per": f"one call at B {cfg_b}, S {s}, H {h}, Hkv {hkv}, D {d}, causal, "
+               "f32; launches counted over one generate (one per layer)",
+    }
+
+
 def main() -> int:
     import torch
 
@@ -338,7 +566,7 @@ def main() -> int:
     card = card_line()
 
     t0 = time.perf_counter()
-    _build.build(["spmm_balanced"])
+    _build.build(["spmm_balanced", "flash_attention"])
     build_s = time.perf_counter() - t0
     for name, log in _build.BUILD_LOGS.items():
         print(f"[build] {name}.cu in {build_s:.1f} s\n{log.strip()}", file=sys.stderr)
@@ -347,14 +575,30 @@ def main() -> int:
     n_cases = phase_small(dev)
     print(f"[phase 1] {n_cases} small kernel checks passed in "
           f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    t0 = time.perf_counter()
+    n_attn, attn_small_err = phase_attention_small(dev)
+    print(f"[phase 1b] {n_attn} flash-attention checks passed in "
+          f"{time.perf_counter() - t0:.1f} s (f32 max |err| {attn_small_err:.3g})",
+          file=sys.stderr)
     ds, ex, launches, serving = phase_serve(dev)
     print(f"[phase 2] served {serving['requests']} requests", file=sys.stderr)
     kernels, all_miss = phase_kernels(ds, ex, launches)
+    print("[phase 3] SpMM kernels timed", file=sys.stderr)
+    del ds, ex
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lm, attn_launches = phase_lm(dev)
+    print(f"[phase 4] served {LM_ARCH} in {time.perf_counter() - t0:.1f} s",
+          file=sys.stderr)
+    kernels.append(phase_attention_time(dev, attn_launches, attn_small_err))
+    print("[phase 5] flash kernel timed", file=sys.stderr)
     serving["build_s"] = build_s
     serving["card"] = card
+    lm["card"] = card
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"lm_serving": lm}))
     # the window kernel's bound if every gathered B row came from HBM, per kdim
     print(json.dumps({"spmm_balanced_bound_all_miss_ms": all_miss}))
     print(card)

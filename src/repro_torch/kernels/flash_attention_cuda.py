@@ -1,0 +1,139 @@
+"""Flash attention on Hopper — the counterpart of ``repro.kernels.flash_attention``.
+
+``flash_attention(q, k, v)`` computes multi-head attention with an online
+softmax for q ``[B, Sq, H, D]`` and k, v ``[B, Sk, Hkv, D]`` (GQA when
+Hkv < H), optionally causal and/or windowed, with queries aligned at
+``Sk - Sq``, through the hand-written CUDA kernel in
+``csrc/flash_attention.cu`` (whose header note gives the design and bound).
+The statistics are f32 and the output takes q's dtype.
+
+The wrapper takes the kernel's plain PyTorch version
+(``flash_attention_plain``) only for tensors on the CPU. CUDA tensors launch
+the kernel or raise. ``LAUNCHES`` counts launches, so a run can show that
+its path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+
+#: the CUDA source of the kernel, relative to the repository root
+SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+
+#: the TPU kernel it replaces
+REPLACES = "src/repro/kernels/flash_attention.py:28"
+
+#: kernel launches since the last ``reset_launches()``
+LAUNCHES = {"flash_attention": 0}
+
+#: head widths the kernel is compiled for
+HEAD_DIMS = (16, 32, 64, 128)
+
+#: the Pallas kernel's mask value and the floor of the softmax denominator
+NEG_INF = -1e30
+L_FLOOR = 1e-30
+
+_DTYPES = (torch.float32, torch.bfloat16)
+_MAX_GRID_Y = 65535
+
+
+def reset_launches() -> None:
+    LAUNCHES["flash_attention"] = 0
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.awb_flash_attention.argtypes = [p] * 4 + [i] * 8 + [ctypes.c_float, i, p]
+    lib.awb_flash_attention.restype = i
+    return lib
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k and v must be [B, S, H, D]")
+    b, _, h, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(
+            f"k {tuple(k.shape)} and v {tuple(v.shape)} do not match q "
+            f"{tuple(q.shape)}: they must be [B, Sk, Hkv, D] with q's B and D")
+    if h % k.shape[2] != 0:
+        raise ValueError(f"{h} query heads do not divide into {k.shape[2]} kv heads")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be a positive number of keys, not {window}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    scale: float | None = None) -> torch.Tensor:
+    """Attention ``[B, Sq, H, D]`` in q's dtype. Tensors on the CPU run the
+    plain version; CUDA tensors run the kernel."""
+    _check(q, k, v, window)
+    devices = {t.device for t in (q, k, v)}
+    if all(t.device.type == "cpu" for t in (q, k, v)):
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     scale=scale)
+    if len(devices) != 1 or not q.is_cuda:
+        raise ValueError(f"q, k and v lie on {sorted(map(str, devices))}; "
+                         "the kernel needs them all on one CUDA device")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
+        raise ValueError(f"q, k, v are {q.dtype}, {k.dtype}, {v.dtype}; the "
+                         "kernel takes all float32 or all bfloat16")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("q, k and v must be contiguous [B, S, H, D]")
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head width {d}; the kernel is built for {HEAD_DIMS}")
+    if b * h > _MAX_GRID_Y:
+        raise ValueError(f"B·H = {b * h} exceeds the grid's {_MAX_GRID_Y}")
+    if scale is None:
+        scale = d ** -0.5
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        LAUNCHES["flash_attention"] += 1
+        err = _lib().awb_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk,
+            h, hkv, d, int(causal), window or 0, float(scale),
+            int(q.dtype == torch.bfloat16), stream,
+        )
+    if err:
+        raise RuntimeError(f"awb_flash_attention launch failed: cudaError {err}")
+    return out
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          causal: bool = True, window: int | None = None,
+                          scale: float | None = None) -> torch.Tensor:
+    """Plain version of the kernel on any device: the kernel's masks
+    (``NEG_INF``, finite) and denominator floor (``L_FLOOR``) on the whole
+    score matrix at once, in f32, cast to q's dtype."""
+    _check(q, k, v, window)
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = d ** -0.5
+    kf = k.float().repeat_interleave(h // hkv, dim=2)
+    vf = v.float().repeat_interleave(h // hkv, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * scale
+    qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = torch.clamp(p.sum(-1, keepdim=True), min=L_FLOOR)
+    out = torch.einsum("bhqk,bkhd->bhqd", p, vf) / l
+    return out.transpose(1, 2).to(q.dtype)

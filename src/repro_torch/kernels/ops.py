@@ -1,8 +1,7 @@
-"""Public SpMM entry points with a backend switch.
+"""Public SpMM and attention entry points with a backend switch.
 
-``"cuda"`` runs the hand-written kernel (``spmm_cuda.spmm_balanced``) and is
-the default for a CUDA tensor; ``"torch"`` runs its plain PyTorch version and
-is the default for a CPU tensor.
+``"cuda"`` runs the hand-written kernel and is the default for a CUDA
+tensor; ``"torch"`` runs plain PyTorch and is the default for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -12,6 +11,8 @@ import torch
 from repro_torch.core import csc as fmt
 from repro_torch.core import spmm as spmm_ref_mod
 from repro_torch.core.schedule import Schedule
+from repro_torch.kernels import flash_attention_cuda as _fa
+from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import spmm_cuda as _sp
 
 BACKENDS = ("cuda", "torch")
@@ -19,6 +20,11 @@ BACKENDS = ("cuda", "torch")
 
 def default_backend(b: torch.Tensor) -> str:
     return "cuda" if b.is_cuda else "torch"
+
+
+# ---------------------------------------------------------------------------
+# SpMM
+# ---------------------------------------------------------------------------
 
 
 def spmm(sched: Schedule, b: torch.Tensor, *, backend: str | None = None,
@@ -35,3 +41,37 @@ def spmm(sched: Schedule, b: torch.Tensor, *, backend: str | None = None,
 def spmm_coo(a: fmt.COO, b: torch.Tensor) -> torch.Tensor:
     """Schedule-free reference path."""
     return spmm_ref_mod.spmm_coo(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int | None = None,
+              scale: float | None = None, backend: str | None = None,
+              block_q: int = 128, block_k: int = 128,
+              chunk: int | None = None) -> torch.Tensor:
+    """Multi-head attention, q [B,Sq,H,D], kv [B,Sk,Hkv,D] (GQA).
+
+    ``"cuda"`` runs the flash kernel (``chunk`` is ignored there, as the
+    JAX package ignores it on the TPU path). ``"torch"`` runs, on the CPU,
+    the chunked oracle when ``chunk`` is given and ``attention_ref``
+    otherwise; on a CUDA tensor it runs the kernel's plain version.
+    ``block_q``/``block_k`` keep the JAX signature: the kernel's tiles are
+    fixed when it is compiled."""
+    backend = backend or default_backend(q)
+    if backend == "cuda":
+        if not q.is_cuda:
+            raise ValueError(f"backend 'cuda' needs CUDA tensors; q is on {q.device}")
+        return _fa.flash_attention(q, k, v, causal=causal, window=window, scale=scale)
+    if backend != "torch":
+        raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
+    if q.is_cuda:
+        return _fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                         scale=scale)
+    if chunk is not None:
+        return _ref.attention_chunked(q, k, v, causal=causal, window=window,
+                                      scale=scale, block_k=chunk)
+    return _ref.attention_ref(q, k, v, causal=causal, window=window, scale=scale)

@@ -1,0 +1,280 @@
+"""Model assembly for the dense attention architectures.
+
+The counterpart of ``repro.models.transformer``. A model is a stack of
+*segments*, each a repeating *unit* of layer kinds. The JAX package scans
+stacked per-segment parameters; the port unrolls the stack into a Python
+list of per-layer parameter dicts (``params["layers"]``) and loops over it.
+The layer kinds ported so far:
+
+  ``attn``   global causal GQA attention + dense MLP
+  ``local``  windowed attention + dense MLP
+
+Every other kind raises ``NotImplementedError`` naming the ROADMAP item that
+ports it. Entry points: ``model_forward`` (full sequence, forward only),
+``prefill`` (build the cache) and ``decode_step`` (one token). Caches are a
+list with one ``{"k", "v"}`` dict per layer.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import common
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models.attention import (AttnDims, attn_decode, attn_forward,
+                                          attn_prefill, init_attn_params,
+                                          init_kv_cache)
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_expert: int
+    capacity_factor: float = 1.25
+    n_slots: int = 0  # 0 => n_experts; > n_experts enables AWB replication
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    n_layers: int
+    max_source: int = 1500  # whisper audio frames after conv stem
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                  # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    segments: Tuple[Tuple[Tuple[str, ...], int], ...]
+    d_head: int = 0              # 0 => d_model // n_heads
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    rope: bool = True
+    rope_theta: float = 1e4
+    activation: str = "silu"
+    glu: bool = True
+    norm: str = "rmsnorm"
+    moe: Optional[MoEConfig] = None
+    window: Optional[int] = None
+    encoder: Optional[EncoderConfig] = None
+    frontend: Optional[str] = None   # audio | vision
+    tie_embeddings: bool = False
+    remat: bool = True
+    d_rnn: int = 0               # 0 => d_model (rglru width)
+    attn_chunk: Optional[int] = None   # chunked attention oracle on the CPU
+    moe_groups: int = 1
+    sp_carry: bool = False
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head or self.d_model // self.n_heads
+
+    @property
+    def rnn_width(self) -> int:
+        return self.d_rnn or self.d_model
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True when no layer needs unwindowed attention over the full
+        sequence (long_500k eligibility)."""
+        kinds = [k for unit, rep in self.segments for k in unit]
+        return all(k in ("rwkv", "rglru", "local") for k in kinds)
+
+    def attn_dims(self, window: Optional[int]) -> AttnDims:
+        return AttnDims(self.d_model, self.n_heads, self.n_kv_heads,
+                        self.head_dim, self.qkv_bias, self.qk_norm,
+                        self.rope, self.rope_theta, window, self.attn_chunk)
+
+
+#: layer kinds of the JAX package not ported yet, with the ROADMAP item
+#: (queue 1, item 1, step n) that ports them
+_LATER = {
+    "attn_moe": "ROADMAP.md queue 1, item 1.1 (attn_moe: models/moe.py)",
+    "xattn": "ROADMAP.md queue 1, item 1.2 (enc/xattn: whisper)",
+    "enc": "ROADMAP.md queue 1, item 1.2 (enc/xattn: whisper)",
+    "rglru": "ROADMAP.md queue 1, item 1.3 (rglru: recurrentgemma)",
+    "rwkv": "ROADMAP.md queue 1, item 1.4 (rwkv6)",
+}
+
+
+def layer_kinds(cfg: ModelConfig) -> list:
+    """The kind of every layer, in order, with each segment unrolled."""
+    kinds = [kind for unit, repeat in cfg.segments for _ in range(repeat)
+             for kind in unit]
+    for kind in kinds:
+        if kind not in ("attn", "local"):
+            if kind in _LATER:
+                raise NotImplementedError(
+                    f"layer kind {kind!r} is not ported yet: {_LATER[kind]}")
+            raise ValueError(f"unknown layer kind {kind}")
+    if cfg.encoder is not None:
+        raise NotImplementedError(f"encoders are not ported yet: {_LATER['enc']}")
+    return kinds
+
+
+def _window(cfg: ModelConfig, kind: str) -> Optional[int]:
+    return cfg.window if kind == "local" else None
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+def _init_layer(cfg: ModelConfig, kind: str, generator, device) -> dict:
+    return {
+        "norm1": common.norm_params(cfg.norm, cfg.d_model, device),
+        "attn": init_attn_params(generator, cfg.attn_dims(_window(cfg, kind)), device),
+        "norm2": common.norm_params(cfg.norm, cfg.d_model, device),
+        "mlp": mlp_mod.init_mlp_params(generator, cfg.d_model, cfg.d_ff, cfg.glu,
+                                       device),
+    }
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
+                device=None) -> dict:
+    """Random parameters drawn from ``generator`` on its device. The meta
+    device (``generator=None, device="meta"``) allocates nothing."""
+    if device is None:
+        device = generator.device
+    params = {
+        "embed": torch.randn((cfg.vocab, cfg.d_model), generator=generator,
+                             device=device) * 0.02,
+        "final_norm": common.norm_params(cfg.norm, cfg.d_model, device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = common.dense_init(generator, (cfg.d_model, cfg.vocab),
+                                              device=device)
+    params["layers"] = [_init_layer(cfg, kind, generator, device)
+                        for kind in layer_kinds(cfg)]
+    return params
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for value in tree.values():
+            yield from _leaves(value)
+    elif isinstance(tree, list):
+        for value in tree:
+            yield from _leaves(value)
+    else:
+        yield tree
+
+
+def count_params(cfg: ModelConfig) -> int:
+    return sum(t.numel() for t in _leaves(init_params(cfg, None, device="meta")))
+
+
+def params_from_jax(cfg: ModelConfig, np_params: dict, device=None) -> dict:
+    """The port's parameters from the JAX package's parameter pytree as
+    numpy arrays: each ``seg{i}`` leaf carries a leading ``repeat`` axis,
+    split here into one dict per layer."""
+    dev = resolve_device(device)
+
+    def tensor(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+
+    def take(tree, r):
+        if isinstance(tree, dict):
+            return {k: take(v, r) for k, v in tree.items()}
+        return tensor(np.asarray(tree)[r])
+
+    layer_kinds(cfg)  # raises on kinds the port does not run
+    params = {"embed": tensor(np_params["embed"]),
+              "final_norm": {k: tensor(v) for k, v in np_params["final_norm"].items()}}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = tensor(np_params["lm_head"])
+    layers = []
+    for si, (unit, repeat) in enumerate(cfg.segments):
+        seg = np_params[f"seg{si}"]
+        for r in range(repeat):
+            layers += [take(seg[f"l{i}"], r) for i in range(len(unit))]
+    params["layers"] = layers
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Forward (full sequence)
+# ---------------------------------------------------------------------------
+
+
+def _norm(cfg, p, x):
+    return common.apply_norm(cfg.norm, x, p)
+
+
+def _mlp(cfg, p, x):
+    return x + mlp_mod.mlp_forward(p["mlp"], _norm(cfg, p["norm2"], x),
+                                   cfg.activation, cfg.glu)
+
+
+def _embed(params: dict, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    # gather then cast: the same values as the JAX package's cast then gather
+    return params["embed"][tokens.long()].to(dtype)
+
+
+def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    x = _norm(cfg, params["final_norm"], x)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return x @ head.to(x.dtype)
+
+
+def model_forward(cfg: ModelConfig, params: dict, batch: dict,
+                  backend: Optional[str] = None,
+                  compute_dtype=torch.bfloat16) -> tuple:
+    """batch: {'tokens': [B, S] int}. Returns (logits [B, S, vocab],
+    aux_loss), the aux loss 0 for the ported kinds."""
+    x = _embed(params, batch["tokens"], compute_dtype)
+    for kind, p in zip(layer_kinds(cfg), params["layers"]):
+        x = x + attn_forward(p["attn"], cfg.attn_dims(_window(cfg, kind)),
+                             _norm(cfg, p["norm1"], x), backend=backend)
+        x = _mlp(cfg, p, x)
+    return _logits(cfg, params, x), torch.zeros((), device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# Cache init / prefill / decode
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
+               device=None) -> list:
+    return [init_kv_cache(cfg.attn_dims(_window(cfg, kind)), batch, max_seq, dtype,
+                          device) for kind in layer_kinds(cfg)]
+
+
+def prefill(cfg: ModelConfig, params: dict, batch: dict, max_seq: int,
+            backend: Optional[str] = None, compute_dtype=torch.bfloat16) -> tuple:
+    """Run the prompt; return (logits at the last position [B, 1, vocab],
+    cache)."""
+    tokens = batch["tokens"]
+    x = _embed(params, tokens, compute_dtype)
+    cache = init_cache(cfg, tokens.shape[0], max_seq, compute_dtype, x.device)
+    for kind, p, c in zip(layer_kinds(cfg), params["layers"], cache):
+        h, _ = attn_prefill(p["attn"], cfg.attn_dims(_window(cfg, kind)),
+                            _norm(cfg, p["norm1"], x), c, backend)
+        x = _mlp(cfg, p, x + h)
+    return _logits(cfg, params, x[:, -1:]), cache
+
+
+def decode_step(cfg: ModelConfig, params: dict, cache: list, token: torch.Tensor,
+                pos: int, compute_dtype=torch.bfloat16) -> tuple:
+    """token: [B] int; pos: the token's position. Returns (logits [B, 1, V],
+    cache), the cache written in place. Decode attention is plain tensor
+    ops (as in the JAX package), so it takes no backend."""
+    x = _embed(params, token, compute_dtype)[:, None]
+    for kind, p, c in zip(layer_kinds(cfg), params["layers"], cache):
+        h, _ = attn_decode(p["attn"], cfg.attn_dims(_window(cfg, kind)),
+                           _norm(cfg, p["norm1"], x), c, pos)
+        x = _mlp(cfg, p, x + h)
+    return _logits(cfg, params, x), cache

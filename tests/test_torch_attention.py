@@ -1,0 +1,135 @@
+"""Parity of the port's attention (the flash kernel's plain version, the
+attention oracles and ``ops.attention``) with the JAX package's Pallas flash
+kernel in interpret mode and its oracles, on the same numpy inputs made
+from a seed. Tolerances are the JAX kernel tests': 2e-5 in f32, 5e-2 in
+bf16 against the f32 oracle."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import flash_attention as fa  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import flash_attention_cuda as tfa  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+
+SWEEP = [
+    (2, 32, 32, 4, 4, 16),
+    (1, 48, 48, 8, 2, 32),   # GQA
+    (2, 16, 64, 4, 1, 16),   # decode-style continuation (Sq < Sk)
+    (1, 40, 40, 2, 2, 16),   # non-multiple of block
+]
+
+
+def _qkv(seed, b, sq, sk, h, hkv, d):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(s).astype(np.float32)
+                 for s in ((b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, d)))
+
+
+def _jax(arrs):
+    return tuple(jnp.asarray(a) for a in arrs)
+
+
+def _torch(arrs):
+    return tuple(torch.from_numpy(a) for a in arrs)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hkv,d", SWEEP)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_matches_pallas_and_oracles(b, sq, sk, h, hkv, d, causal):
+    arrs = _qkv(b * sq + h, b, sq, sk, h, hkv, d)
+    pallas = np.asarray(fa.flash_attention(*_jax(arrs), causal=causal, block_q=16,
+                                           block_k=16, interpret=True))
+    gold = np.asarray(jref.attention_ref(*_jax(arrs), causal=causal))
+    chunked = np.asarray(jref.attention_chunked(*_jax(arrs), causal=causal,
+                                                block_k=16))
+    plain = tfa.flash_attention(*_torch(arrs), causal=causal)  # CPU: plain version
+    np.testing.assert_allclose(plain.numpy(), pallas, atol=2e-5)
+    np.testing.assert_allclose(tfa.flash_attention_plain(*_torch(arrs), causal=causal)
+                               .numpy(), gold, atol=2e-5)
+    np.testing.assert_allclose(tref.attention_ref(*_torch(arrs), causal=causal)
+                               .numpy(), gold, atol=2e-5)
+    np.testing.assert_allclose(tref.attention_chunked(*_torch(arrs), causal=causal,
+                                                      block_k=16).numpy(),
+                               chunked, atol=2e-5)
+
+
+@pytest.mark.parametrize("window", [8, 24])
+def test_flash_plain_window(window):
+    arrs = _qkv(window, 1, 64, 64, 4, 2, 16)
+    pallas = np.asarray(fa.flash_attention(*_jax(arrs), causal=True, window=window,
+                                           block_q=16, block_k=16, interpret=True))
+    gold = np.asarray(jref.attention_ref(*_jax(arrs), causal=True, window=window))
+    plain = tfa.flash_attention_plain(*_torch(arrs), causal=True, window=window)
+    np.testing.assert_allclose(plain.numpy(), pallas, atol=2e-5)
+    for fn in (tref.attention_ref, tfa.flash_attention_plain):
+        np.testing.assert_allclose(fn(*_torch(arrs), causal=True, window=window)
+                                   .numpy(), gold, atol=2e-5)
+    np.testing.assert_allclose(
+        tref.attention_chunked(*_torch(arrs), window=window, block_k=16).numpy(),
+        np.asarray(jref.attention_chunked(*_jax(arrs), window=window, block_k=16)),
+        atol=2e-5)
+
+
+def test_flash_plain_window_without_causal():
+    arrs = _qkv(3, 1, 40, 40, 4, 2, 16)
+    gold = np.asarray(jref.attention_ref(*_jax(arrs), causal=False, window=8))
+    pallas = np.asarray(fa.flash_attention(*_jax(arrs), causal=False, window=8,
+                                           block_q=16, block_k=16, interpret=True))
+    np.testing.assert_allclose(pallas, gold, atol=2e-5)
+    plain = tfa.flash_attention_plain(*_torch(arrs), causal=False, window=8)
+    np.testing.assert_allclose(plain.numpy(), gold, atol=2e-5)
+
+
+def test_flash_plain_bf16():
+    arrs = _qkv(7, 2, 32, 32, 4, 2, 16)
+    gold = np.asarray(jref.attention_ref(*_jax(arrs)))
+    bf = tuple(t.to(torch.bfloat16) for t in _torch(arrs))
+    out = tfa.flash_attention_plain(*bf)
+    assert out.dtype == torch.bfloat16
+    assert np.abs(out.float().numpy() - gold).max() < 5e-2
+    pallas = fa.flash_attention(*(a.astype(jnp.bfloat16) for a in _jax(arrs)),
+                                block_q=16, block_k=16, interpret=True)
+    assert np.abs(out.float().numpy() - np.asarray(pallas, np.float32)).max() < 5e-2
+    # the oracle casts p to v's dtype before the PV product, as the JAX one
+    ref_bf = tref.attention_ref(*bf)
+    jref_bf = jref.attention_ref(*(a.astype(jnp.bfloat16) for a in _jax(arrs)))
+    assert ref_bf.dtype == torch.bfloat16
+    assert np.abs(ref_bf.float().numpy() - np.asarray(jref_bf, np.float32)).max() < 5e-2
+
+
+def test_ops_attention_dispatch(monkeypatch):
+    arrs = _torch(_qkv(11, 1, 32, 32, 4, 2, 16))
+    calls = []
+    for mod, name in ((tref, "attention_ref"), (tref, "attention_chunked"),
+                      (tfa, "flash_attention"), (tfa, "flash_attention_plain")):
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _fn=fn, _n=name, **k: (
+            calls.append(_n), _fn(*a, **k))[1])
+    a_ref = tops.attention(*arrs)
+    a_chunk = tops.attention(*arrs, chunk=8)
+    a_torch = tops.attention(*arrs, backend="torch", window=8)
+    assert calls == ["attention_ref", "attention_chunked", "attention_ref"]
+    np.testing.assert_allclose(a_ref.numpy(), a_chunk.numpy(), atol=2e-5)
+    np.testing.assert_allclose(
+        a_torch.numpy(), tfa.flash_attention_plain(*arrs, window=8).numpy(), atol=2e-5)
+    with pytest.raises(ValueError, match="cuda"):
+        tops.attention(*arrs, backend="cuda")
+    with pytest.raises(ValueError, match="backend"):
+        tops.attention(*arrs, backend="pallas")
+
+
+def test_wrapper_checks_operands_on_the_cpu():
+    q, k, v = _torch(_qkv(1, 1, 16, 16, 4, 2, 16))
+    with pytest.raises(ValueError, match="kv heads"):
+        tfa.flash_attention(q, k[:, :, :1].expand(1, 16, 3, 16).contiguous(),
+                            v[:, :, :1].expand(1, 16, 3, 16).contiguous())
+    with pytest.raises(ValueError, match="do not match"):
+        tfa.flash_attention(q, k[..., :8], v[..., :8])
+    with pytest.raises(ValueError, match="window"):
+        tfa.flash_attention(q, k, v, window=0)
+    assert tfa.LAUNCHES["flash_attention"] == 0  # the CPU never launches

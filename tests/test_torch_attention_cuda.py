@@ -1,0 +1,128 @@
+"""The hand-written flash-attention kernel against its plain PyTorch version,
+on the card. Every test here needs a CUDA device and skips without one; run
+them on the card with
+``python -m pytest -m cuda tests/test_torch_attention_cuda.py``. This file
+imports no JAX, so it runs where only PyTorch is installed. Tolerances are
+the JAX kernel tests': 2e-5·max(1, |gold|max) in f32, 5e-2 in bf16."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import configs as tcfgs  # noqa: E402
+from repro_torch.kernels import flash_attention_cuda as tfa  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.models import transformer as ttr  # noqa: E402
+from repro_torch.models.transformer_serve import ServeEngine  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+# (b, sq, sk, h, hkv, d): the JAX kernel tests' shapes, then the widths of
+# the configs (64, 128) at a length that is no multiple of any tile
+SHAPES = [
+    (2, 32, 32, 4, 4, 16),
+    (1, 48, 48, 8, 2, 32),
+    (2, 16, 64, 4, 1, 16),
+    (1, 40, 40, 2, 2, 16),
+    (1, 1000, 1000, 4, 2, 64),
+    (1, 1000, 1000, 4, 1, 128),
+]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _qkv(dev, seed, b, sq, sk, h, hkv, d, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                 .to(dev, dtype)
+                 for s in ((b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, d)))
+
+
+def _tol(gold, dtype):
+    return (2e-5 * max(1.0, float(gold.abs().max())) if dtype == torch.float32
+            else 5e-2)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None), (True, 8),
+                                           (True, 24), (False, 24)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_matches_plain_version(dev, shape, causal, window, dtype):
+    q, k, v = _qkv(dev, sum(shape), *shape, dtype=dtype)
+    before = tfa.LAUNCHES["flash_attention"]
+    got = tfa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape and got.is_cuda
+    gold = tfa.flash_attention_plain(q.float(), k.float(), v.float(), causal=causal,
+                                     window=window)
+    assert float((got.float() - gold).abs().max()) <= _tol(gold, dtype)
+
+
+def test_kernel_is_deterministic(dev):
+    q, k, v = _qkv(dev, 1, 2, 300, 300, 8, 2, 64)
+    first = tfa.flash_attention(q, k, v)
+    for _ in range(3):
+        assert torch.equal(tfa.flash_attention(q, k, v), first)
+
+
+def test_ops_dispatch_on_the_card(dev):
+    q, k, v = _qkv(dev, 2, 1, 64, 64, 4, 2, 32)
+    tfa.reset_launches()
+    plain = tops.attention(q, k, v, backend="torch")
+    assert tfa.LAUNCHES["flash_attention"] == 0
+    got = tops.attention(q, k, v, chunk=16)  # chunk is ignored on the card
+    assert tfa.LAUNCHES["flash_attention"] == 1
+    assert float((got - plain).abs().max()) <= _tol(plain, torch.float32)
+
+
+def test_prefill_launches_once_per_layer(dev):
+    cfg = tcfgs.get_reduced_config("qwen2-0.5b")
+    params = ttr.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 40), device=dev)
+    tfa.reset_launches()
+    logits, _ = ttr.prefill(cfg, params, {"tokens": toks}, max_seq=48,
+                            compute_dtype=torch.float32)
+    assert tfa.LAUNCHES["flash_attention"] == cfg.n_layers
+    gold, _ = ttr.prefill(cfg, params, {"tokens": toks}, max_seq=48, backend="torch",
+                          compute_dtype=torch.float32)
+    assert tfa.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert float((logits - gold).abs().max()) <= 2e-3 * max(1.0, float(gold.abs().max()))
+
+
+def test_serve_engine_on_the_card_matches_the_cpu(dev):
+    cfg = tcfgs.get_reduced_config("qwen2-0.5b")
+    params = ttr.init_params(cfg, torch.Generator().manual_seed(1))
+    prompts = [[3, 4, 5, 6], [7, 8]]
+    want = ServeEngine(cfg, params, max_seq=16, device="cpu").generate(prompts, 6)
+    tfa.reset_launches()
+    got = ServeEngine(cfg, params, max_seq=16, device=dev).generate(prompts, 6)
+    assert got == want
+    assert tfa.LAUNCHES["flash_attention"] == cfg.n_layers
+
+
+def test_wrapper_rejects_bad_operands(dev):
+    q, k, v = _qkv(dev, 3, 1, 16, 16, 4, 2, 16)
+    with pytest.raises(ValueError, match="head width"):
+        tfa.flash_attention(*_qkv(dev, 3, 1, 16, 16, 4, 2, 24))
+    with pytest.raises(ValueError, match="CUDA device"):
+        tfa.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="kv heads"):
+        q3 = torch.zeros((1, 16, 3, 16), device=dev)
+        tfa.flash_attention(q3, k, v)
+    with pytest.raises(ValueError, match="do not match"):
+        tfa.flash_attention(q, k, v[:, :8])
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        tfa.flash_attention(q, k.to(torch.bfloat16), v)
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        tfa.flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="cuda"):
+        tops.attention(q.cpu(), k.cpu(), v.cpu(), backend="cuda")

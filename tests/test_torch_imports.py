@@ -34,9 +34,13 @@ def test_port_files_exist():
     names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
     for f in ("src/repro_torch/core/executor.py",
               "src/repro_torch/kernels/spmm_cuda.py",
-              "src/repro_torch/tuning/registry.py", "chip_smoke.py"):
+              "src/repro_torch/tuning/registry.py", "chip_smoke.py",
+              "src/repro_torch/kernels/flash_attention_cuda.py",
+              "src/repro_torch/models/transformer_serve.py",
+              "src/repro_torch/launch/serve.py", "src/repro_torch/configs/qwen2_05b.py"):
         assert f in names
-    assert (REPO / "src/repro_torch/kernels/csrc/spmm_balanced.cu").exists()
+    for src in ("spmm_balanced.cu", "flash_attention.cu"):
+        assert (REPO / "src/repro_torch/kernels/csrc" / src).exists()
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -49,7 +53,9 @@ def test_no_jax_or_reference_imports(path):
 def test_importing_the_port_loads_no_jax_and_builds_nothing():
     code = ("import sys; import repro_torch.core.executor, "
             "repro_torch.tuning.registry, "
-            "repro_torch.core.gcn, repro_torch.graphs.synth, repro_torch.kernels.ops; "
+            "repro_torch.core.gcn, repro_torch.graphs.synth, repro_torch.kernels.ops, "
+            "repro_torch.configs, repro_torch.models.transformer_serve, "
+            "repro_torch.launch.serve; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "assert not bad, bad; "
             "from repro_torch.kernels import _build; "
@@ -84,3 +90,15 @@ def test_entry_points_default_to_the_card(monkeypatch):
         synth.make_dataset("cora", scale=16)
     with pytest.raises(RuntimeError):
         gcn.params_from_jax({"w0": np.zeros((2, 2), np.float32)})
+
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.transformer_serve import ServeEngine
+
+    cfg = configs.get_reduced_config("qwen2-0.5b")
+    params = tr.init_params(cfg, torch.Generator())
+    with pytest.raises(RuntimeError):
+        ServeEngine(cfg, params)
+    with pytest.raises(RuntimeError):
+        serve.main(["--reduced"])
