@@ -18,10 +18,17 @@ Builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    (232,965 nodes, 602 features, hidden 128, 41 classes) through the port's
    GCN path — ``registry.get_executor`` → ``ScheduleExecutor.forward_batch``
    — with the SpMM launch counts reset just before and read just after, and
-   holds every request's logits against the plain COO forward.
+   holds every request's logits against the plain COO forward. Then serves
+   the same batches in turn for ``STEADY_S`` seconds: steady throughput is
+   all of that window's requests over its whole time.
 3. Holds each SpMM kernel against its plain version at the GCN path's
-   shapes and times kernel, plain version and ``torch.sparse.mm`` on the CSR
-   adjacency (a yardstick the port never calls) with CUDA events.
+   shapes (and ``spmm_balanced`` against itself: two calls, bit-equal) and
+   times kernel, plain version, ``spmm_balanced`` end to end and
+   ``torch.sparse.mm`` on the CSR adjacency (a yardstick the port never
+   calls) with CUDA events, in turns; times the window kernel under a few
+   other lane mappings beside the one it picks. Records the schedule's
+   geometry as the window kernel meets it (windows, evil chunks, padding,
+   row runs).
 4. Serves qwen2-0.5b at full width (24 layers, d_model 896, vocab 151,936;
    seeded random weights, f32) through ``ServeEngine.generate``: 4 prompts of
    2048, 1536, 1024 and 512 seeded random tokens (left-padded to 2048),
@@ -41,7 +48,9 @@ max(1, |gold|max): SpMM 1e-4 (f32) and 3e-2 (bf16), attention 2e-5 (f32)
 and 5e-2 (bf16, unscaled) — the JAX package's kernel test tolerances — and
 LM logits 2e-3, its decode-vs-forward tolerance.
 
-Prints a ``{"kernels": [...]}`` line, a ``{"serving": ...}`` line, a
+Prints the SpMM kernels' registers and spills (``-Xptxas -v``) and the
+window kernel's lane mapping per kdim, a
+``{"kernels": [...]}`` line, a ``{"serving": ...}`` line, a
 ``{"lm_serving": ...}`` line, the window kernel's all-gathers-miss bound per
 kdim, the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -67,7 +76,12 @@ REPLACES = {
     "spmm_balanced": "src/repro/kernels/spmm_pallas.py:54",
     "spmm_epilogue": "src/repro/core/schedule.py:898",
 }
-BATCHES, BATCH_SIZE, KEEP = 3, 4, 0.9
+BATCHES, BATCH_SIZE, KEEP, STEADY_S = 3, 4, 0.9, 2.0
+# the window kernel's lane mappings timed beside the one it picks, per kdim:
+# (vec, lanes a step, vectors a lane); reddit's B of f32 rows
+LANE_SWEEP = {512: [(4, 16, 1), (4, 32, 1), (4, 32, 4)],
+              164: [(4, 8, 3), (4, 32, 2), (4, 16, 1)],
+              128: [(4, 16, 1), (4, 32, 1)], 41: [(1, 32, 2), (1, 8, 3)]}
 # LM serving: qwen2-0.5b prompts, cache length, new tokens, logits tolerance
 LM_ARCH, LM_PROMPTS, LM_MAX_SEQ, LM_NEW, LM_TOL = (
     "qwen2-0.5b", (2048, 1536, 1024, 512), 2080, 32, 2e-3)
@@ -237,6 +251,13 @@ def phase_serve(dev):
             gold = gcn.forward(params, adj, xb[i])
             max_err = max(max_err, check("request logits", out[i], gold,
                                          torch.float32))
+    # steady throughput: the batches again, in turn, until the window is full
+    n_steady, t0 = 0, time.perf_counter()
+    while time.perf_counter() - t0 < STEADY_S:
+        ex.forward_batch(params, batches[n_steady % BATCHES])
+        torch.cuda.synchronize()
+        n_steady += 1
+    steady_s = time.perf_counter() - t0
     # the dense X·W products of one batch (both layers, ReLU between), timed
     # apart so the batch time splits into dense products and SpMM kernels
     xb = batches[0]
@@ -249,21 +270,73 @@ def phase_serve(dev):
         "utilization": sched.utilization, "n_evil_chunks": sched.n_evil_chunks,
         "requests": n_req, "batches": BATCHES, "batch_size": BATCH_SIZE,
         "requests_per_s": n_req / serve_s,
-        "steady_requests_per_s": (BATCHES - 1) * BATCH_SIZE / (
-            sum(batch_ms[1:]) / 1e3),
-        "batch_ms": batch_ms, "xw_ms_per_batch": xw_ms, "max_abs_err": max_err,
+        "steady_requests_per_s": n_steady * BATCH_SIZE / steady_s,
+        "steady_batches": n_steady, "steady_s": steady_s,
+        "steady_batch_ms": steady_s * 1e3 / n_steady, "batch_ms": batch_ms,
+        "xw_ms_per_batch": xw_ms, "max_abs_err": max_err,
         "dataset_s": t_data, "executor_build_s": t_exec,
     }
     del batches, outs
     return ds, ex, launches, serving
 
 
-def bytes_window(steps, n, kdim, elt, n_live, all_miss=False) -> int:
-    n_steps, k = steps.val.shape
-    meta = n_steps * k * 12 + n_steps * 4 + steps.win_ptr.numel() * 4
-    meta += steps.row_map.numel() * 4
-    b_bytes = (n_steps * k if all_miss else n) * kdim * elt
-    return meta + b_bytes + n_live * kdim * 4
+def bytes_window(steps, n, kdim, elt, all_miss=False) -> int:
+    """Bytes the window kernel must move: each live slot's 8-byte record,
+    the per-step pointers, B once (or once per live slot when no gather
+    hits in L2), and the f32 partials written once."""
+    n_slots = steps.slots.shape[0]
+    meta = n_slots * 8 + (steps.slot_ptr.numel() + steps.part_ptr.numel()) * 4
+    b_bytes = (n_slots if all_miss else n) * kdim * elt
+    return meta + b_bytes + steps.n_parts * kdim * 4
+
+
+def schedule_geometry(sched, steps) -> dict:
+    """The converged schedule as the window kernel meets it: windows and
+    their steps, evil chunks, padding and row runs (counts, not times)."""
+    import numpy as np
+
+    n_steps, r = sched.n_steps, sched.rows_per_window
+    per_window = np.bincount(sched.win_id, minlength=sched.n_windows)
+    evil = np.zeros(sched.n_windows, bool)
+    evil[sched.win_id[n_steps - sched.n_evil_chunks:]] = True
+    regular = ~evil & (per_window > 0)
+    live_rows = (sched.row_map.reshape(-1, r) >= 0).sum(axis=1)
+    n_live = int(steps.slot_ptr[-1])
+    return {
+        "regular_windows": int(regular.sum()),
+        "regular_windows_of_one_step": int((per_window[regular] == 1).sum()),
+        "rows_per_regular_window": float(live_rows[regular].mean()),
+        "evil_windows": int(evil.sum()),
+        "steps_per_evil_window": float(per_window[evil].mean()) if evil.any() else 0.0,
+        "evil_steps": int(sched.n_evil_chunks),
+        "issued_slots": int(sched.issued_slots), "live_slots": n_live,
+        "padding_share": 1.0 - n_live / sched.issued_slots,
+        "partials": int(steps.n_parts), "runs_per_step": steps.n_parts / n_steps,
+    }
+
+
+def kernel_registers() -> dict:
+    """Registers and spill bytes of each compiled SpMM kernel, from ptxas."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    regs, name = {}, None
+    for line in _build.BUILD_LOGS.get("spmm_balanced", "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            t = re.search(r"(spmm_step_kernel|epilogue_kernel)I(f|13__nv_bfloat16)"
+                          r"Li(\d+)E(?:Li(\d+)E)?", m.group(1))
+            name = (f"{t.group(1)}<{'f32' if t.group(2) == 'f' else 'bf16'},"
+                    f"{','.join(g for g in t.groups()[2:] if g)}>") if t else None
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            regs.setdefault(name, {})["spill_store_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            regs.setdefault(name, {})["registers"] = int(m.group(1))
+    return regs
 
 
 def phase_kernels(ds, ex, launches):
@@ -278,59 +351,85 @@ def phase_kernels(ds, ex, launches):
     dev = ex.device
     steps = ex._steps
     m, n = ds.adj.shape
-    live = steps.row_map >= 0
-    n_live = int(live.sum())
+    geometry = schedule_geometry(ex.sched, steps)
     # multiplies this run's data needs: padding slots (val 0) are skipped
-    n_nnz = int((steps.val != 0).sum())
+    n_nnz = int((steps.slots[:, 1] != 0).sum())
+    n_kept = int(steps.epi_part.numel())
+    part_row = torch.full((steps.n_parts,), -1, dtype=torch.long, device=dev)
+    part_row[steps.epi_part.long()] = torch.repeat_interleave(
+        torch.arange(m, device=dev), steps.epi_ptr.diff().long())
+    kept = part_row >= 0
     csr = ds.adj_csr
     a_csr = torch.sparse_csr_tensor(
         csr.indptr.long(), csr.indices.long(), csr.data, size=(m, n)
     ).to(dev)
     gen = torch.Generator(device=dev).manual_seed(2)
     rows = {"spmm_balanced": [], "spmm_epilogue": []}
-    all_miss = {}
+    all_miss, lanes = {}, {}
     main_widths = (BATCH_SIZE * ds.hidden, BATCH_SIZE * ds.num_classes)
     for kdim in main_widths + (ds.hidden, ds.num_classes):
         b = torch.randn((n, kdim), generator=gen, device=dev)
-        out_k = spmm_cuda.spmm_window(steps, b, ktile=ex.ktile)
-        out_p = spmm_cuda.spmm_window_plain(steps, b)
-        err_w = check(f"spmm_window k={kdim}", out_k[live], out_p[live],
-                      torch.float32)
-        epi_k = spmm_cuda.spmm_epilogue(steps, out_p, torch.float32)
-        epi_p = spmm_cuda.spmm_epilogue_plain(steps, out_p, torch.float32)
+        part_k = spmm_cuda.spmm_window(steps, b, ktile=ex.ktile)
+        part_p = spmm_cuda.spmm_window_plain(steps, b)
+        err_w = check(f"spmm_window k={kdim}", part_k, part_p, torch.float32)
+        epi_k = spmm_cuda.spmm_epilogue(steps, part_p, torch.float32)
+        epi_p = spmm_cuda.spmm_epilogue_plain(steps, part_p, torch.float32)
         err_e = check(f"spmm_epilogue k={kdim}", epi_k, epi_p, torch.float32)
         lib = torch.sparse.mm(a_csr, b)
         check(f"sparse.mm vs kernels k={kdim}", epi_k, lib, torch.float32)
-        del out_k, epi_k, lib
+        first = spmm_cuda.spmm_balanced(steps, b, ktile=ex.ktile)
+        if not torch.equal(first, spmm_cuda.spmm_balanced(steps, b, ktile=ex.ktile)):
+            raise AssertionError(f"spmm_balanced k={kdim}: two calls differ")
+        del part_k, epi_k, lib, first
+        # library and kernels in turns: sparse.mm, spmm_balanced, the two
+        # kernels apart, then spmm_balanced and sparse.mm again
+        lib_ms = [timed_ms(lambda: torch.sparse.mm(a_csr, b), 10)]
+        bal_ms = [timed_ms(lambda: spmm_cuda.spmm_balanced(steps, b, ktile=ex.ktile),
+                           10)]
         w_ms = timed_ms(lambda: spmm_cuda.spmm_window(steps, b, ktile=ex.ktile), 10)
-        wp_ms = timed_ms(lambda: spmm_cuda.spmm_window_plain(steps, b), 2)
-        e_ms = timed_ms(lambda: spmm_cuda.spmm_epilogue(steps, out_p, torch.float32),
+        e_ms = timed_ms(lambda: spmm_cuda.spmm_epilogue(steps, part_p, torch.float32),
                         10)
+        bal_ms.append(timed_ms(
+            lambda: spmm_cuda.spmm_balanced(steps, b, ktile=ex.ktile), 10))
+        lib_ms.append(timed_ms(lambda: torch.sparse.mm(a_csr, b), 10))
+        wp_ms = timed_ms(lambda: spmm_cuda.spmm_window_plain(steps, b), 2)
         ep_ms = timed_ms(
-            lambda: spmm_cuda.spmm_epilogue_plain(steps, out_p, torch.float32), 3)
-        tgt = steps.row_map.long()[live]
-        src = out_p[live]
+            lambda: spmm_cuda.spmm_epilogue_plain(steps, part_p, torch.float32), 3)
+        tgt, src = part_row[kept], part_p[kept]
         e_lib = timed_ms(
             lambda: torch.zeros((m, kdim), device=dev).index_add_(0, tgt, src), 10)
-        lib_ms = timed_ms(lambda: torch.sparse.mm(a_csr, b), 10)
-        del out_p, src
-        w_bytes = bytes_window(steps, n, kdim, 4, n_live)
-        w_miss = bytes_window(steps, n, kdim, 4, n_live, all_miss=True)
+        del part_p, src
+        chosen = spmm_cuda.lane_mapping(kdim, b.dtype, rows=n)
+        lane_ms = {str(chosen): w_ms}
+        for vec, gw, nc in LANE_SWEEP[kdim]:
+            mapping = (vec, gw, nc, -(-kdim // (vec * gw * nc)))
+            lane_ms[str(mapping)] = timed_ms(
+                lambda: spmm_cuda._window(steps, b, mapping), 10)
+        w_bytes = bytes_window(steps, n, kdim, 4)
+        w_miss = bytes_window(steps, n, kdim, 4, all_miss=True)
         w_ops_ms = 2 * n_nnz * kdim / PEAK_F32_FLOPS * 1e3
         all_miss[str(kdim)] = w_miss / PEAK_BYTES_PER_S * 1e3
-        e_bytes = n_live * kdim * 4 + (m + 1 + n_live) * 4 + m * kdim * 4
+        e_bytes = n_kept * kdim * 4 + (m + 1 + n_kept) * 4 + m * kdim * 4
+        vec, gw, nc, panels = chosen
+        lanes[str(kdim)] = {"vec": vec, "group": gw, "vectors": nc, "panels": panels,
+                            "idle_share": 1 - kdim // vec / (panels * gw * nc)}
         rows["spmm_balanced"].append({
             "kdim": kdim, "main_path": kdim in main_widths, "max_abs_err": err_w,
-            "ms": w_ms, "plain_ms": wp_ms, "library_ms": lib_ms,
+            "ms": w_ms, "plain_ms": wp_ms, "library_ms": float(np.mean(lib_ms)),
+            "balanced_ms": float(np.mean(bal_ms)), "balanced_runs_ms": bal_ms,
+            "library_runs_ms": lib_ms,
             "bound_ms": max(w_bytes / PEAK_BYTES_PER_S * 1e3, w_ops_ms),
             "bound_by": "bytes" if w_bytes / PEAK_BYTES_PER_S * 1e3 >= w_ops_ms
             else "operations",
+            "lane_sweep_ms": lane_ms,
         })
         rows["spmm_epilogue"].append({
             "kdim": kdim, "main_path": kdim in main_widths, "max_abs_err": err_e,
             "ms": e_ms, "plain_ms": ep_ms, "library_ms": e_lib,
             "bound_ms": e_bytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
         })
+        del b
+        torch.cuda.empty_cache()
     kernels = []
     for name, shapes in rows.items():
         main = [s for s in shapes if s["main_path"]]
@@ -343,11 +442,12 @@ def phase_kernels(ds, ex, launches):
             else "operations",
             "per": "one forward_batch of 4 requests (both layers)",
         }
-        for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+        keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+        for key in keys + (("balanced_ms",) if name == "spmm_balanced" else ()):
             entry[key] = float(np.sum([s[key] for s in main]))
         entry["shapes"] = shapes
         kernels.append(entry)
-    return kernels, all_miss
+    return kernels, all_miss, lanes, geometry
 
 
 def attn_tol(gold, dtype) -> float:
@@ -582,7 +682,8 @@ def main() -> int:
           file=sys.stderr)
     ds, ex, launches, serving = phase_serve(dev)
     print(f"[phase 2] served {serving['requests']} requests", file=sys.stderr)
-    kernels, all_miss = phase_kernels(ds, ex, launches)
+    kernels, all_miss, lanes, geometry = phase_kernels(ds, ex, launches)
+    serving["schedule"] = geometry
     print("[phase 3] SpMM kernels timed", file=sys.stderr)
     del ds, ex
     torch.cuda.empty_cache()
@@ -596,6 +697,8 @@ def main() -> int:
     serving["card"] = card
     lm["card"] = card
 
+    # the SpMM kernels' registers and spills, and the window kernel's lanes
+    print(json.dumps({"spmm_registers": kernel_registers(), "spmm_lanes": lanes}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"lm_serving": lm}))

@@ -19,7 +19,7 @@ The executor serves inference: its methods record no autograd graph.
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -149,27 +149,44 @@ def _placed(x: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def device_step_arrays(sched: Schedule, device=None) -> spmm_cuda.DeviceSteps:
     """The schedule's ``spmm_cuda.DeviceSteps`` on ``device`` (default: the
-    card) — step-major ``val``/``lrow``/``lcol``, per-step ``win``/``cblk``,
-    ``row_map`` and the kernels' window and epilogue index arrays — uploaded
-    once per (schedule instance, device) and memoized (bounded LRU)."""
+    card) — the kernels' slot records and step and epilogue index arrays —
+    uploaded once per (schedule instance, device) and memoized (bounded
+    LRU)."""
     device = resolve_device(device)
     key = (id(sched), str(device))
     hit = _DEVICE_STEPS.get(key)
     if hit is not None and hit[0] is sched:
         _DEVICE_STEPS.move_to_end(key)
         return hit[1]
-    arrs = {k: _placed(v, device) for k, v in spmm_cuda.host_steps(sched).items()}
+    plan = spmm_cuda.kernel_plan(sched)
     steps = spmm_cuda.DeviceSteps(
-        **arrs,
+        **{k: _placed(v, device) for k, v in plan.items()},
         shape=sched.shape,
-        nnz_per_step=sched.nnz_per_step,
-        rows_per_window=sched.rows_per_window,
-        cols_per_block=sched.cols_per_block,
+        n_parts=int(plan["part_ptr"][-1]),
     )
     _DEVICE_STEPS[key] = (sched, steps)
     if len(_DEVICE_STEPS) > _DEVICE_STEPS_CAP:
         _DEVICE_STEPS.popitem(last=False)
     return steps
+
+
+class OneHotSteps(NamedTuple):
+    """The one-hot routing's schedule arrays on one device, step-major."""
+
+    val: torch.Tensor  # [n_steps, K] f32
+    lrow: torch.Tensor  # [n_steps, K] int32
+    lcol: torch.Tensor  # [n_steps, K] int32
+    win: torch.Tensor  # [n_steps] int32
+    cblk: torch.Tensor  # [n_steps] int32
+    row_map: torch.Tensor  # [n_windows * R] int32, -1 on dead slots
+
+
+def _onehot_steps(sched: Schedule, device: torch.device) -> OneHotSteps:
+    n_steps, k = sched.n_steps, sched.nnz_per_step
+    return OneHotSteps(*(_placed(x, device) for x in (
+        sched.val.reshape(n_steps, k), sched.local_row.reshape(n_steps, k),
+        sched.local_col.reshape(n_steps, k), sched.win_id, sched.col_block,
+        sched.row_map)))
 
 
 #: sentinel for ``release_device_steps``: drop the copies on every device
@@ -296,8 +313,8 @@ class ScheduleExecutor:
             )
             self._spmm_impl = self._gather_impl
         else:
-            self._steps = device_step_arrays(sched, self.device)
-            self.device_bytes = self._steps.nbytes
+            self._onehot = _onehot_steps(sched, self.device)
+            self.device_bytes = sum(t.nbytes for t in self._onehot)
             self._spmm_impl = self._onehot_impl
         if self._unperm is not None:
             self.device_bytes += int(self._unperm.nbytes)
@@ -406,10 +423,10 @@ class ScheduleExecutor:
         bp = torch.zeros((ncb * cb, kdim), dtype=acc, device=dev)
         bp[:n] = b.to(acc)
         bp = bp.reshape(ncb, cb, kdim)
-        s = self._steps
+        s = self._onehot
         ar_cb = torch.arange(cb, device=dev)
         ar_r = torch.arange(r, device=dev)
-        out_perm = torch.zeros((s.n_windows, r, kdim), dtype=acc, device=dev)
+        out_perm = torch.zeros((self.sched.n_windows, r, kdim), dtype=acc, device=dev)
         n_steps = s.win.shape[0]
         chunk = max(1, GATHER_ELEMS // (k * cb + cb * kdim + k * (r + kdim)))
         for lo in range(0, n_steps, chunk):

@@ -45,11 +45,14 @@ Builders:
     (what a static-grid kernel without runtime rebalancing must issue).
 
 Kernel contract (relied on by ``kernels/spmm_cuda.py``, which gives each
-window one thread block that loops over the window's step range):
-  * steps of one window are contiguous in step order, so one block owns a
-    window's whole accumulator and writes it back once;
-  * padding slots have ``val == 0`` and in-range local indices (0), so they
-    accumulate nothing;
+step to a group of lanes, in any order, and sums each run of one output
+row within the step in registers):
+  * padding slots have ``val == 0``, in-range local indices (0) and come
+    at a step's tail, so the kernel stops at the step's last non-zero slot;
+  * within a step, slots are sorted by (row, column), so each output row is
+    one run, summed once and written as one partial; a slot whose sums span
+    several steps (column blocks, ``window_nnz > K``, naive schedules) gets
+    one partial per step, and the epilogue adds them in a fixed order;
   * ``row_map[slot] == -1`` marks padding slots of the permuted output.
 """
 

@@ -27,7 +27,8 @@ NVCC_FLAGS = (
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
-#: compiler output (ptxas register and shared-memory report) per source
+#: compiler output (ptxas register, spill and shared-memory report) per
+#: source, kept beside each library so a cached build still has it
 BUILD_LOGS: dict = {}
 
 
@@ -54,6 +55,9 @@ def build(names) -> dict:
     procs = {}
     for name, path in paths.items():
         if path.exists():
+            log = path.with_suffix(".log")
+            if log.exists():
+                BUILD_LOGS[name] = log.read_text()
             continue
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -66,6 +70,7 @@ def build(names) -> dict:
         if proc.returncode != 0:
             failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
             continue
+        paths[name].with_suffix(".log").write_text(log)
         os.replace(tmp, paths[name])  # atomic: a concurrent loader sees all or none
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))

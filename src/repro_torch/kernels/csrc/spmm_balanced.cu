@@ -9,46 +9,78 @@
 //     folds the permuted window output back into matrix rows and merges the
 //     chunks of evil rows (the paper's adder tree).
 //
-// Design
-//   Hopper runs thread blocks in no order, so nothing can be carried from
-//   one step to the next across blocks. The schedule makes each window's
-//   steps contiguous and sorted, so `awb_spmm_window` gives one block to each
-//   (window, column tile) and loops over the window's step range
-//   [win_ptr[w], win_ptr[w+1]). Thread t of the block owns column t of the
-//   tile: for every slot, in slot order, it gathers B[gcol, col] (gcol =
-//   min(cblk*CB + lcol, n-1)) and adds val*B into acc[lrow][t] in shared
-//   memory, in f32. Neighbouring threads read neighbouring columns of one B
-//   row, and every thread reads the same slot metadata (a broadcast). Each
-//   accumulator element is summed by one thread in slot order, so the result
-//   is deterministic. Padding slots have val == 0 and add nothing. With the
-//   default geometry CB = n, so B cannot be staged in shared memory: rows
-//   come from device memory through L2.
+// The schedule on a real graph
+//   With the default geometry (K = 256 slots a step, R = 64 rows a window,
+//   window_nnz = K, one column block) every regular window holds exactly one
+//   step, and every evil-row chunk is one step writing its own output slot.
+//   On reddit (232,965 rows, 22.94 M non-zeros): 111,513 steps, 85,702
+//   one-step regular windows of 2.6 rows on average, 404 evil windows of 64
+//   one-chunk steps (25,811 steps, 23 % of the work), and 19.6 % of the
+//   28.55 M issued slots are padding (val == 0, always a step's tail).
+//   Within a step, slots are sorted by (row, column): 2.24 row runs a step.
 //
-//   The block writes only the live slots of its window (row_map >= 0) to the
-//   f32 permuted output. On real graphs a window holds a few rows of its R
-//   slots, so most of the permuted output is dead and is neither written nor
-//   read. `awb_spmm_epilogue` then gives one thread to each (output row,
-//   column): it sums the row's live slots in ascending slot order (a CSR
-//   built from row_map at upload), casts to B's dtype and writes the row,
-//   optionally through the row un-permutation of a reordered schedule.
-//   Unlike index_add_, whose float atomics sum in an order that changes from
-//   run to run, the epilogue is deterministic.
+// Design: the work unit is the step
+//   The schedule cuts the work into steps of K slots, the GPU analogue of
+//   the paper's PE rounds, so `awb_spmm_window` gives each step to a group of
+//   gw lanes (32, 16 or 8: a warp or part of one) and lets the hardware hand
+//   out the groups: the AWB equal-work rule applied to SMs. No step waits for
+//   another, and the evil chunks spread over the whole card.
+//   * Metadata once per step and panel. `kernel_plan` packs each live slot
+//     into one 8-byte record at upload: the global B row min(cblk*CB + lcol,
+//     n-1), bit 31 set where a run of one output row starts, and val's
+//     bits. Lane i of a group loads record j0+i (coalesced, streaming cache
+//     hint, the next tile's loaded a tile ahead); shuffles broadcast it.
+//   * Padding is skipped: only live slots are packed, so no B row is
+//     gathered for a padding slot.
+//   * 16-byte gathers. A lane gathers VEC = 4 floats or 8 bf16 at once when
+//     kdim and B allow it (else 1) and owns NC such vectors of a column
+//     panel of gw*NC*VEC columns; panels = grid.y, each a pass over all
+//     steps (launched panel-major). U slots are in flight per lane: 4 when
+//     NC == 1 or VEC == 1, else 1.
+//   * Row runs in registers. A lane adds val*B into NC*VEC f32 registers in
+//     slot order and writes the sum once, when a run ends, as one row of the
+//     partial output `part` (streaming stores). No shared memory.
+//   * Lane mapping (`spmm_cuda.lane_mapping`, from kdim, dtype and B's
+//     rows). When B is larger than L2 (50 MB) and its rows are whole 128-byte
+//     lines, a panel is one line: 8 lanes of 16 bytes, NC 1, so a panel's
+//     slice of B (30 MB at 32 f32 columns on reddit) stays in L2 while every
+//     step gathers from it. Otherwise one pass, fewest idle lanes. On reddit:
+//     kdim 512 and 128 run 16 and 4 line panels, 0 % idle lanes; kdim 164
+//     (656-byte rows) runs one pass of 41 float4 over gw 16, NC 3: 14.6 %
+//     idle; kdim 41 the same mapping with scalar gathers: 14.6 % idle.
+//   Why: chip_smoke.py phase 3 times the kernel under other lane mappings
+//   beside this one (PERF.md §6): at kdim 512, one full-width pass is
+//   slower than line panels, which keep each gather's slice of B in L2.
+//   U stays small so a step kernel needs at most 68 registers in f32
+//   (89 in bf16) and no spills: at 64 (the f32 line-panel kernel) four
+//   256-thread blocks fit an SM, and many steps in flight hide the
+//   gathers' latency.
+//   Each partial is the sum of one run of one step, so partial p belongs to
+//   the output slot row_map[win*R + lrow] of its run. `kernel_plan` numbers
+//   the partials (part_ptr: the first partial of each step) and builds the
+//   epilogue's CSR from output row to its partials. On the default geometry
+//   a row has one partial, and an evil row one per chunk. Where a slot takes
+//   sums from several steps (column blocking, window_nnz > K, naive
+//   schedules), it simply has several partials.
 //
-//   The Pallas kernel adds each step into an output block of B's dtype; here
-//   the whole window and the epilogue accumulate in f32 and round once.
+//   `awb_spmm_epilogue` gives one thread to each (output row, vector of 4
+//   columns, or one column when kdim % 4 != 0 or part or out is not 16-byte
+//   aligned): it sums the row's partials in ascending partial order from 0,
+//   casts to B's dtype and writes the row, optionally through the row
+//   un-permutation of a reordered schedule.
+//   Every output element is summed by one thread in a fixed order in both
+//   kernels, so the result is bit-deterministic (index_add_'s float atomics
+//   are not). The Pallas kernel adds each step into an output block of B's
+//   dtype; here runs and the epilogue accumulate in f32 and round once.
 //
 // Bound
-//   Memory. Per call the window kernel reads S = n_steps*K slots of 12 bytes
-//   of metadata and S gathered B rows of kdim elements, and writes the live
-//   slots of the permuted output in f32; the epilogue reads those back and
-//   writes m*kdim elements. Compulsory traffic counts B once; when no gather
-//   hits in cache, B traffic is S*kdim elements. The product needs 2*nnz*kdim
-//   flops (padding slots are multiplied by 0 as well), far below the card's
-//   f32 rate for these bytes.
-//
-// Known weakness: one block per window serializes a long window (up to a few
-// hundred steps on reddit) on one SM, which brings back some of the
-// imbalance the schedule removes; splitting long windows is later work.
+//   Memory. Per call the window kernel must read 8 bytes for each live slot
+//   (22.94 M on reddit), 8 per step, and B once, and write n_parts rows of
+//   f32; each further panel reads the records again. The epilogue reads the
+//   partials back and writes m*kdim elements. When no gather hits in L2 (B
+//   is 477 MB at kdim 512), B traffic is live_slots*kdim elements (14.2 ms
+//   at 3.35 TB/s for kdim 512). The product needs 2*nnz*kdim flops, at kdim
+//   512 as long at 67 TFLOP/s as the compulsory bytes at 3.35 TB/s.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,120 +88,265 @@
 
 namespace {
 
-constexpr int kUnroll = 8;
+constexpr int kThreads = 256;
 
-__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+// One lane's gather of VEC consecutive elements of a B row, as f32.
+template <typename T, int VEC>
+struct Gather;
+
+template <>
+struct Gather<float, 4> {
+  using Raw = float4;
+  __device__ static Raw load(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  __device__ static float at(const Raw& r, int e) {
+    return e == 0 ? r.x : e == 1 ? r.y : e == 2 ? r.z : r.w;
+  }
+};
+
+template <>
+struct Gather<float, 1> {
+  using Raw = float;
+  __device__ static Raw load(const float* p) { return __ldg(p); }
+  __device__ static float at(const Raw& r, int) { return r; }
+};
+
+template <>
+struct Gather<__nv_bfloat16, 8> {
+  using Raw = uint4;
+  __device__ static Raw load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ static float at(const Raw& r, int e) {
+    const unsigned w = e < 2 ? r.x : e < 4 ? r.y : e < 6 ? r.z : r.w;
+    return __uint_as_float((e & 1) ? (w & 0xffff0000u) : (w << 16));
+  }
+};
+
+template <>
+struct Gather<__nv_bfloat16, 1> {
+  using Raw = unsigned short;
+  __device__ static Raw load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const unsigned short*>(p));
+  }
+  __device__ static float at(const Raw& r, int) {
+    return __uint_as_float(static_cast<unsigned>(r) << 16);
+  }
+};
+
+// Slots in flight per lane: 4 when a lane gathers one vector (or scalars),
+// else 1. Deeper unrolling costs registers, and the kernel is bound by how
+// many steps an SM keeps in flight (measured: chip_smoke.py phase 3).
+template <int VEC, int NC>
+__host__ __device__ constexpr int unroll() {
+  return (NC == 1 || VEC == 1) ? 4 : 1;
 }
-__device__ __forceinline__ void store_from_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
-template <typename T>
-__global__ void spmm_window_kernel(const float* __restrict__ val,
-                                   const int* __restrict__ lrow,
-                                   const int* __restrict__ lcol,
-                                   const int* __restrict__ cblk,
-                                   const int* __restrict__ win_ptr,
-                                   const int* __restrict__ row_map,
-                                   const T* __restrict__ b, int n, int kdim,
-                                   int k, int r, int cb,
-                                   float* __restrict__ out_perm) {
-  extern __shared__ float acc[];  // [r][blockDim.x]; thread t owns column t
-  const int w = blockIdx.x;
-  const int kt = blockDim.x;
-  const int t = threadIdx.x;
-  const int col = blockIdx.y * kt + t;
-  const bool active = col < kdim;
-  const int bcol = active ? col : 0;
-
-  for (int i = 0; i < r; ++i) acc[i * kt + t] = 0.f;
-
-  const int step_end = win_ptr[w + 1];
-  for (int step = win_ptr[w]; step < step_end; ++step) {
-    const int base = __ldg(cblk + step) * cb;
-    const int64_t s0 = static_cast<int64_t>(step) * k;
-    int j = 0;
-    for (; j + kUnroll <= k; j += kUnroll) {
-      float v[kUnroll], bv[kUnroll];
-      int rr[kUnroll];
+template <int VEC>
+__device__ __forceinline__ void store_run(float* q, const float (&a)[VEC]) {
+  if constexpr (VEC == 1) {
+    __stcs(q, a[0]);
+  } else {
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int64_t s = s0 + j + u;
-        v[u] = __ldg(val + s);
-        rr[u] = __ldg(lrow + s);
-        const int g = min(base + __ldg(lcol + s), n - 1);
-        bv[u] = load_f32(b + static_cast<int64_t>(g) * kdim + bcol);
+    for (int e = 0; e < VEC; e += 4)
+      __stcs(reinterpret_cast<float4*>(q + e),
+             make_float4(a[e], a[e + 1], a[e + 2], a[e + 3]));
+  }
+}
+
+// slots[i] = {B row | (1 << 31) where a run starts, val's bits}, the live
+// slots of step s at [slot_ptr[s], slot_ptr[s+1]); its runs are partials
+// part_ptr[s], part_ptr[s] + 1, ...
+template <typename T, int VEC, int NC>
+__global__ void __launch_bounds__(kThreads)
+    spmm_step_kernel(const int2* __restrict__ slots,
+                     const int* __restrict__ slot_ptr,
+                     const int* __restrict__ part_ptr,
+                     const T* __restrict__ b, int n_steps, int kdim, int gw,
+                     float* __restrict__ part) {
+  using G = Gather<T, VEC>;
+  constexpr int U = unroll<VEC, NC>();
+  const int64_t group =
+      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / gw;
+  if (group >= n_steps) return;  // the whole group leaves together
+  const int step = static_cast<int>(group);
+  const int beg = __ldg(slot_ptr + step);
+  const int len = __ldg(slot_ptr + step + 1) - beg;
+  if (len == 0) return;
+
+  const int lane = threadIdx.x & (gw - 1);
+  const unsigned gmask =
+      gw == 32 ? 0xffffffffu
+               : ((1u << gw) - 1u) << ((threadIdx.x & 31) & ~(gw - 1));
+  const int nv = kdim / VEC;
+  bool act[NC];
+  int col[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int v = (blockIdx.y * NC + c) * gw + lane;
+    act[c] = v < nv;
+    col[c] = act[c] ? v * VEC : 0;
+  }
+
+  const int64_t p0 = __ldg(part_ptr + step);
+  int64_t p = p0 - 1;  // the first slot starts run p0
+  float acc[NC][VEC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[c][e] = 0.f;
+
+  auto flush = [&]() {
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      if (act[c]) store_run<VEC>(part + p * kdim + col[c], acc[c]);
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[c][e] = 0.f;
+  };
+
+  // lane i holds slot j0 + i; the next tile's records load a tile ahead
+  int2 next = lane < len ? __ldcs(slots + beg + lane) : int2{0, 0};
+  for (int j0 = 0; j0 < len; j0 += gw) {
+    const int2 mine = next;
+    if (j0 + gw + lane < len) next = __ldcs(slots + beg + j0 + gw + lane);
+    const int cnt = min(gw, len - j0);
+    for (int u0 = 0; u0 < cnt; u0 += U) {
+      int g[U];
+      float v[U];
+      typename G::Raw x[U][NC];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        g[u] = __shfl_sync(gmask, mine.x, u0 + u, gw);
+        v[u] = __int_as_float(__shfl_sync(gmask, mine.y, u0 + u, gw));
+        const T* row = b + static_cast<int64_t>(g[u] & 0x7fffffff) * kdim;
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          x[u][c] = (u0 + u < cnt && act[c]) ? G::load(row + col[c])
+                                             : typename G::Raw{};
       }
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) acc[rr[u] * kt + t] += v[u] * bv[u];
-    }
-    for (; j < k; ++j) {
-      const int64_t s = s0 + j;
-      const int g = min(base + __ldg(lcol + s), n - 1);
-      const float bv = load_f32(b + static_cast<int64_t>(g) * kdim + bcol);
-      acc[__ldg(lrow + s) * kt + t] += __ldg(val + s) * bv;
+      for (int u = 0; u < U; ++u) {
+        if (u0 + u < cnt) {
+          if (g[u] < 0) {  // a run starts: write the one before it
+            if (p >= p0) flush();
+            ++p;
+          }
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
+#pragma unroll
+            for (int e = 0; e < VEC; ++e)
+              acc[c][e] = fmaf(v[u], G::at(x[u][c], e), acc[c][e]);
+        }
+      }
     }
   }
-
-  if (!active) return;
-  const int64_t slot0 = static_cast<int64_t>(w) * r;
-  for (int i = 0; i < r; ++i) {
-    if (__ldg(row_map + slot0 + i) >= 0)
-      out_perm[(slot0 + i) * kdim + col] = acc[i * kt + t];
-  }
+  flush();
 }
 
-template <typename T>
-__global__ void epilogue_kernel(const float* __restrict__ out_perm,
+__device__ __forceinline__ void store_out(float* q, const float (&a)[4]) {
+  *reinterpret_cast<float4*>(q) = make_float4(a[0], a[1], a[2], a[3]);
+}
+__device__ __forceinline__ void store_out(__nv_bfloat16* q,
+                                          const float (&a)[4]) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(a[0], a[1]);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(a[2], a[3]);
+  uint2 w;
+  w.x = *reinterpret_cast<unsigned*>(&lo);
+  w.y = *reinterpret_cast<unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(q) = w;
+}
+__device__ __forceinline__ void store_out(float* q, const float (&a)[1]) {
+  *q = a[0];
+}
+__device__ __forceinline__ void store_out(__nv_bfloat16* q,
+                                          const float (&a)[1]) {
+  *q = __float2bfloat16(a[0]);
+}
+
+template <typename T, int VEC>
+__global__ void epilogue_kernel(const float* __restrict__ part,
                                 const int* __restrict__ epi_ptr,
-                                const int* __restrict__ epi_slot,
+                                const int* __restrict__ epi_part,
                                 const int* __restrict__ unperm, int m,
                                 int kdim, T* __restrict__ out) {
+  const int nv = kdim / VEC;
   const int64_t idx =
       static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<int64_t>(m) * kdim) return;
-  const int row = static_cast<int>(idx / kdim);
-  const int col = static_cast<int>(idx % kdim);
+  if (idx >= static_cast<int64_t>(m) * nv) return;
+  const int row = static_cast<int>(idx / nv);
+  const int col = static_cast<int>(idx % nv) * VEC;
   const int src = unperm != nullptr ? __ldg(unperm + row) : row;
-  float sum = 0.f;
+  float sum[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) sum[e] = 0.f;
   const int end = __ldg(epi_ptr + src + 1);
-  for (int p = __ldg(epi_ptr + src); p < end; ++p)
-    sum += __ldg(out_perm + static_cast<int64_t>(__ldg(epi_slot + p)) * kdim +
-                 col);
-  store_from_f32(out + idx, sum);
+  for (int q = __ldg(epi_ptr + src); q < end; ++q) {
+    const float* x =
+        part + static_cast<int64_t>(__ldg(epi_part + q)) * kdim + col;
+    if constexpr (VEC == 4) {
+      const float4 y = __ldcs(reinterpret_cast<const float4*>(x));
+      sum[0] += y.x;
+      sum[1] += y.y;
+      sum[2] += y.z;
+      sum[3] += y.w;
+    } else {
+      sum[0] += __ldcs(x);
+    }
+  }
+  store_out(out + static_cast<int64_t>(row) * kdim + col, sum);
 }
 
-template <typename T>
-int launch_window(const float* val, const int* lrow, const int* lcol,
-                  const int* cblk, const int* win_ptr, const int* row_map,
-                  int n_windows, int k, int r, int cb, int n, const void* b,
-                  int kdim, int kt, float* out_perm, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(r) * kt * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        spmm_window_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid(n_windows, (kdim + kt - 1) / kt);
-  spmm_window_kernel<T><<<grid, kt, smem, stream>>>(
-      val, lrow, lcol, cblk, win_ptr, row_map, static_cast<const T*>(b), n,
-      kdim, k, r, cb, out_perm);
+template <typename T, int VEC, int NC>
+int launch_steps(const int2* slots, const int* slot_ptr, const int* part_ptr,
+                 int n_steps, const void* b, int kdim, int gw, float* part,
+                 cudaStream_t stream) {
+  const int64_t threads = static_cast<int64_t>(n_steps) * gw;
+  const int64_t blocks = (threads + kThreads - 1) / kThreads;
+  const int panel = gw * NC;
+  const int panels = (kdim / VEC + panel - 1) / panel;
+  if (blocks > 0x7fffffff || panels > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks), panels);
+  spmm_step_kernel<T, VEC, NC><<<grid, kThreads, 0, stream>>>(
+      slots, slot_ptr, part_ptr, static_cast<const T*>(b), n_steps, kdim, gw,
+      part);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_epilogue(const float* out_perm, const int* epi_ptr,
-                    const int* epi_slot, const int* unperm, int m, int kdim,
+template <typename T, int VEC>
+int launch_steps_nc(int nc, const int2* slots, const int* slot_ptr,
+                    const int* part_ptr, int n_steps, const void* b, int kdim,
+                    int gw, float* part, cudaStream_t st) {
+  switch (nc) {
+    case 1:
+      return launch_steps<T, VEC, 1>(slots, slot_ptr, part_ptr, n_steps, b,
+                                     kdim, gw, part, st);
+    case 2:
+      return launch_steps<T, VEC, 2>(slots, slot_ptr, part_ptr, n_steps, b,
+                                     kdim, gw, part, st);
+    case 3:
+      return launch_steps<T, VEC, 3>(slots, slot_ptr, part_ptr, n_steps, b,
+                                     kdim, gw, part, st);
+    case 4:
+      return launch_steps<T, VEC, 4>(slots, slot_ptr, part_ptr, n_steps, b,
+                                     kdim, gw, part, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T, int VEC>
+int launch_epilogue(const float* part, const int* epi_ptr,
+                    const int* epi_part, const int* unperm, int m, int kdim,
                     void* out, cudaStream_t stream) {
-  constexpr int kThreads = 256;
-  const int64_t total = static_cast<int64_t>(m) * kdim;
+  const int64_t total = static_cast<int64_t>(m) * (kdim / VEC);
   const int64_t blocks = (total + kThreads - 1) / kThreads;
-  epilogue_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      out_perm, epi_ptr, epi_slot, unperm, m, kdim, static_cast<T*>(out));
+  epilogue_kernel<T, VEC>
+      <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+          part, epi_ptr, epi_part, unperm, m, kdim, static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -177,38 +354,61 @@ int launch_epilogue(const float* out_perm, const int* epi_ptr,
 
 extern "C" {
 
-// Permuted window output: out_perm[w*r + i, :] for every live slot (row_map
-// >= 0) of every window w. b is [n, kdim], f32 (b_bf16 == 0) or bf16;
-// kt threads per block, one per column of the tile. Returns cudaError_t.
-int awb_spmm_window(const float* val, const int* lrow, const int* lcol,
-                    const int* cblk, const int* win_ptr, const int* row_map,
-                    int n_windows, int k, int r, int cb, int n, const void* b,
-                    int b_bf16, int kdim, int kt, float* out_perm,
-                    void* stream) {
-  if (n_windows == 0 || kdim == 0) return 0;
+// Partial output: part[p, :] for every run p of every step (a step's live
+// slots are slots[slot_ptr[s] .. slot_ptr[s+1]), its runs part_ptr[s] ..).
+// b is [n, kdim], f32 (b_bf16 == 0) or bf16. Lane mapping: vec 4 (f32) or
+// 8 (bf16) for 16-byte gathers, which needs kdim % vec == 0 and b 16-byte
+// aligned, else 1; gw lanes a step (8, 16 or 32); nc vectors a lane (1-4);
+// ceil(kdim / (vec * gw * nc)) column panels. Returns cudaError_t.
+int awb_spmm_window(const int* slots, const int* slot_ptr,
+                    const int* part_ptr, int n_steps, const void* b,
+                    int b_bf16, int kdim, int vec, int gw, int nc,
+                    float* part, void* stream) {
+  if (n_steps == 0 || kdim == 0) return 0;
+  if ((gw != 8 && gw != 16 && gw != 32) || kdim % vec != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (b_bf16)
-    return launch_window<__nv_bfloat16>(val, lrow, lcol, cblk, win_ptr,
-                                        row_map, n_windows, k, r, cb, n, b,
-                                        kdim, kt, out_perm, st);
-  return launch_window<float>(val, lrow, lcol, cblk, win_ptr, row_map,
-                              n_windows, k, r, cb, n, b, kdim, kt, out_perm,
-                              st);
+  const int2* s2 = reinterpret_cast<const int2*>(slots);
+  if (b_bf16) {
+    if (vec == 8)
+      return launch_steps_nc<__nv_bfloat16, 8>(nc, s2, slot_ptr, part_ptr,
+                                               n_steps, b, kdim, gw, part, st);
+    if (vec == 1)
+      return launch_steps_nc<__nv_bfloat16, 1>(nc, s2, slot_ptr, part_ptr,
+                                               n_steps, b, kdim, gw, part, st);
+  } else {
+    if (vec == 4)
+      return launch_steps_nc<float, 4>(nc, s2, slot_ptr, part_ptr, n_steps, b,
+                                       kdim, gw, part, st);
+    if (vec == 1)
+      return launch_steps_nc<float, 1>(nc, s2, slot_ptr, part_ptr, n_steps, b,
+                                       kdim, gw, part, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// out[row, :] = sum of out_perm[epi_slot[p], :] for p in the CSR segment of
-// row unperm[row] (or row itself when unperm is null), cast to out's dtype
-// (f32 when out_bf16 == 0, else bf16). Returns cudaError_t.
-int awb_spmm_epilogue(const float* out_perm, const int* epi_ptr,
-                      const int* epi_slot, const int* unperm, int m, int kdim,
+// out[row, :] = sum of part[epi_part[q], :] for q in the CSR segment of row
+// unperm[row] (or row itself when unperm is null), in ascending q, cast to
+// out's dtype (f32 when out_bf16 == 0, else bf16). Returns cudaError_t.
+int awb_spmm_epilogue(const float* part, const int* epi_ptr,
+                      const int* epi_part, const int* unperm, int m, int kdim,
                       void* out, int out_bf16, void* stream) {
   if (m == 0 || kdim == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // 16-byte loads of part need its rows on 16-byte boundaries
+  if (kdim % 4 == 0 && reinterpret_cast<uintptr_t>(part) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(out) % 16 == 0) {
+    if (out_bf16)
+      return launch_epilogue<__nv_bfloat16, 4>(part, epi_ptr, epi_part,
+                                               unperm, m, kdim, out, st);
+    return launch_epilogue<float, 4>(part, epi_ptr, epi_part, unperm, m,
+                                     kdim, out, st);
+  }
   if (out_bf16)
-    return launch_epilogue<__nv_bfloat16>(out_perm, epi_ptr, epi_slot, unperm,
-                                          m, kdim, out, st);
-  return launch_epilogue<float>(out_perm, epi_ptr, epi_slot, unperm, m, kdim,
-                                out, st);
+    return launch_epilogue<__nv_bfloat16, 1>(part, epi_ptr, epi_part, unperm,
+                                             m, kdim, out, st);
+  return launch_epilogue<float, 1>(part, epi_ptr, epi_part, unperm, m, kdim,
+                                   out, st);
 }
 
 }  // extern "C"

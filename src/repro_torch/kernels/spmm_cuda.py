@@ -4,17 +4,26 @@
 converged ``Schedule`` with two hand-written CUDA kernels
 (``csrc/spmm_balanced.cu``, whose header note gives the design and bound):
 
-* ``spmm_window`` — one thread block per (output window, column tile) loops
-  over the window's contiguous steps and accumulates the window in shared
-  memory in f32; it writes the live slots of the permuted output;
-* ``spmm_epilogue`` — folds the permuted output into matrix rows through a
-  row → slot CSR built at upload (the adder tree for evil-row chunks), in a
-  fixed order, optionally un-permuting rows of a reordered schedule.
+* ``spmm_window`` — a group of lanes (a warp, or 16 or 8 of its lanes) takes
+  one whole step: it gathers the step's live B rows with 16-byte loads (a
+  column panel at a time when B outgrows L2), sums each run of one output
+  row in registers in f32 and writes the run's sum as one row of the
+  partial output ``[n_parts, kdim]``;
+* ``spmm_epilogue`` — folds the partials into matrix rows through a
+  row → partial CSR built at upload (the adder tree for evil-row chunks and
+  for rows whose sums span steps), in a fixed order, optionally
+  un-permuting rows of a reordered schedule.
 
-Each wrapper takes its kernel's plain PyTorch version (``*_plain``) only
-for a tensor on the CPU. A CUDA tensor launches the kernel or raises.
-``LAUNCHES`` counts launches per kernel, so a run can show that its path
-went through the kernels.
+``kernel_plan`` derives at upload, on the host, what the kernels need beyond
+the schedule's own arrays: one 8-byte record per live slot, each step's
+live slots and first partial, and the epilogue's CSR. Only these are
+uploaded (``DeviceSteps``); the plain versions read the same records. ``lane_mapping``
+picks the lanes' layout from kdim, dtype and B's size.
+
+Each wrapper takes its kernel's plain PyTorch version (``*_plain``, which
+computes the same partials) only for a tensor on the CPU. A CUDA tensor
+launches the kernel or raises. ``LAUNCHES`` counts launches per kernel, so a
+run can show that its path went through the kernels.
 """
 
 from __future__ import annotations
@@ -36,10 +45,15 @@ SOURCE = "src/repro_torch/kernels/csrc/spmm_balanced.cu"
 #: kernel launches since the last ``reset_launches()``, by kernel name
 LAUNCHES = {"spmm_balanced": 0, "spmm_epilogue": 0}
 
-#: shared memory one thread block may use on an H100 (bytes)
-MAX_SMEM = 227 * 1024
-
 _DTYPES = (torch.float32, torch.bfloat16)
+#: lanes a step may take, and 16-byte vectors a lane may own, in the kernel
+GROUP_WIDTHS = (32, 16, 8)
+MAX_VECTORS = 4
+#: an H100's L2 cache and line (bytes): a B larger than the cache is
+#: gathered one line-wide column panel at a time, so each panel's slice of B
+#: stays in L2 while every step reads it
+L2_BYTES = 50 * 2**20
+LINE_BYTES = 128
 
 
 def reset_launches() -> None:
@@ -48,76 +62,103 @@ def reset_launches() -> None:
 
 
 class DeviceSteps(NamedTuple):
-    """A schedule's arrays as the kernels read them, on one device."""
+    """The arrays the kernels read (``kernel_plan``'s), on one device."""
 
-    val: torch.Tensor  # [n_steps, K] f32
-    lrow: torch.Tensor  # [n_steps, K] int32
-    lcol: torch.Tensor  # [n_steps, K] int32
-    win: torch.Tensor  # [n_steps] int32
-    cblk: torch.Tensor  # [n_steps] int32
-    row_map: torch.Tensor  # [n_windows * R] int32, -1 on dead slots
-    win_ptr: torch.Tensor  # [n_windows + 1] int32: steps of window w
-    epi_ptr: torch.Tensor  # [m + 1] int32: live slots of output row i
-    epi_slot: torch.Tensor  # [n_live] int32, ascending within each row
+    slots: torch.Tensor  # [n_live, 2] int32: {B row | run start << 31, val bits}
+    slot_ptr: torch.Tensor  # [n_steps + 1] int32: live slots of step s
+    part_ptr: torch.Tensor  # [n_steps + 1] int32: first partial of step s
+    epi_ptr: torch.Tensor  # [m + 1] int32: partials of output row i
+    epi_part: torch.Tensor  # [n_parts] int32, ascending within each row
     shape: Tuple[int, int]
-    nnz_per_step: int
-    rows_per_window: int
-    cols_per_block: int
+    n_parts: int
 
     @property
-    def n_windows(self) -> int:
-        return self.win_ptr.shape[0] - 1
+    def n_steps(self) -> int:
+        return self.slot_ptr.shape[0] - 1
 
     @property
     def nbytes(self) -> int:
-        return sum(t.nbytes for t in self[:9])
+        return sum(t.nbytes for t in self[:5])
 
 
 def kernel_plan(sched: Schedule) -> dict:
-    """Host arrays the kernels need beyond the schedule's own: the step
-    range of each window (``win_ptr``) and the row → live-slot CSR of the
-    epilogue (``epi_ptr``/``epi_slot``). Raises if the steps of a window
-    are not one run in window order — the contract that lets one block own
-    a window."""
-    win = sched.win_id.astype(np.int64)
-    if win.size > 1 and np.any(win[1:] < win[:-1]):
-        raise ValueError(
-            "schedule steps are not grouped by window in window order: a "
-            "window appears in two step runs"
-        )
-    counts = np.bincount(win, minlength=sched.n_windows)
-    win_ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
-    rm = sched.row_map
-    live = np.flatnonzero(rm >= 0)
-    order = np.argsort(rm[live], kind="stable")
-    rows = np.bincount(rm[live], minlength=sched.shape[0])
-    epi_ptr = np.concatenate([[0], np.cumsum(rows)]).astype(np.int32)
+    """Host arrays the kernels need beyond the schedule's own.
+
+    * ``slot_ptr``: step s's live slots, its first ``slot_ptr[s+1] -
+      slot_ptr[s]`` (1 + its last slot with ``val != 0``; 0 for an
+      all-padding step). Padding is a step's tail and is left out.
+    * ``slots``: one 8-byte record per live slot, step by step: the global B
+      row ``min(cblk * CB + lcol, n - 1)`` with bit 31 set where a run of
+      equal ``lrow`` starts, and ``val``'s bits.
+    * ``part_ptr``: step s's first partial. A partial is one run, so step s
+      has ``part_ptr[s+1] - part_ptr[s]`` of them, numbered in slot order.
+    * ``epi_ptr``/``epi_part``: the CSR from output row to the partials of
+      its output slots (``row_map[win * R + lrow]``), ascending.
+
+    Steps may come in any order: no partial takes sums from two steps."""
+    (_, n), n_steps, k = sched.shape, sched.n_steps, sched.nnz_per_step
+    if n > 2**31 - 1:
+        raise ValueError(f"B has {n} rows; a slot record holds a 31-bit row")
+    val = sched.val.reshape(n_steps, k)
+    lrow = sched.local_row.reshape(n_steps, k)
+    nz = val != 0
+    live = np.where(nz.any(axis=1), k - np.argmax(nz[:, ::-1], axis=1), 0)
+    in_live = np.arange(k)[None, :] < live[:, None]
+    start = in_live.copy()
+    start[:, 1:] &= lrow[:, 1:] != lrow[:, :-1]
+    gcol = np.minimum(sched.col_block.astype(np.int64)[:, None] * sched.cols_per_block
+                      + sched.local_col.reshape(n_steps, k), n - 1)
+    head = (gcol | start.astype(np.int64) << 31).astype(np.uint32).view(np.int32)
+    slots = np.stack([head[in_live], val[in_live].view(np.int32)], axis=1)
+    part_ptr = np.concatenate([[0], np.cumsum(start.sum(axis=1))])
+    step, slot = np.nonzero(start)  # partials in order
+    part_row = sched.row_map[sched.win_id[step].astype(np.int64)
+                             * sched.rows_per_window + lrow[step, slot]]
+    kept = np.flatnonzero(part_row >= 0)
+    order = np.argsort(part_row[kept], kind="stable")
+    rows = np.bincount(part_row[kept], minlength=sched.shape[0])
     return {
-        "win_ptr": win_ptr,
-        "epi_ptr": epi_ptr,
-        "epi_slot": live[order].astype(np.int32),
+        "slots": slots,
+        "slot_ptr": np.concatenate([[0], np.cumsum(live)]).astype(np.int32),
+        "part_ptr": part_ptr.astype(np.int32),
+        "epi_ptr": np.concatenate([[0], np.cumsum(rows)]).astype(np.int32),
+        "epi_part": kept[order].astype(np.int32),
     }
 
 
-def host_steps(sched: Schedule) -> dict:
-    """Every array of ``DeviceSteps`` on the host, step-major."""
-    n_steps, k = sched.n_steps, sched.nnz_per_step
-    return {
-        "val": sched.val.reshape(n_steps, k),
-        "lrow": sched.local_row.reshape(n_steps, k),
-        "lcol": sched.local_col.reshape(n_steps, k),
-        "win": sched.win_id,
-        "cblk": sched.col_block,
-        "row_map": sched.row_map,
-        **kernel_plan(sched),
-    }
+def lane_mapping(kdim: int, dtype, aligned: bool = True, rows: int = 0):
+    """The window kernel's lanes for B ``[rows, kdim]`` of ``dtype``: returns
+    ``(vec, gw, nc, panels)``. A lane gathers ``vec`` elements at once (16
+    bytes when ``kdim`` and B's address allow it, else 1) and owns ``nc``
+    such vectors; ``gw`` lanes take a step; a step's row is cut into
+    ``panels`` of ``gw * nc * vec`` columns, each panel a pass over all
+    steps. When B is larger than L2 and its rows are whole lines, a panel is
+    one line (8 lanes of 16 bytes), so the panel's slice of B stays in L2.
+    Otherwise: fewest panels first (each one walks the steps again), then
+    fewest idle lanes, then the widest group."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    vec = 16 // elt
+    if not aligned or kdim % vec:
+        vec = 1
+    if vec > 1 and kdim * elt % LINE_BYTES == 0 and rows * kdim * elt > L2_BYTES:
+        return vec, LINE_BYTES // 16, 1, kdim * elt // LINE_BYTES
+    nv = -(-kdim // vec)
+    best = None
+    for gw in GROUP_WIDTHS:
+        for nc in range(1, MAX_VECTORS + 1):
+            panels = -(-nv // (gw * nc))
+            idle = panels * gw * nc - nv
+            key = (panels, idle, -gw, nc)
+            if best is None or key < best[0]:
+                best = (key, (vec, gw, nc, panels))
+    return best[1]
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("spmm_balanced")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.awb_spmm_window.argtypes = [p] * 6 + [i] * 5 + [p] + [i] * 3 + [p, p]
+    lib.awb_spmm_window.argtypes = [p, p, p, i, p] + [i] * 5 + [p, p]
     lib.awb_spmm_window.restype = i
     lib.awb_spmm_epilogue.argtypes = [p, p, p, p, i, i, p, i, p]
     lib.awb_spmm_epilogue.restype = i
@@ -127,9 +168,9 @@ def _lib() -> ctypes.CDLL:
 def _check_cuda(steps: DeviceSteps, x: torch.Tensor, what: str) -> None:
     if not x.is_cuda:
         raise ValueError(f"{what} is on {x.device}; the kernel runs on CUDA")
-    if steps.val.device != x.device:
+    if steps.slots.device != x.device:
         raise ValueError(
-            f"{what} is on {x.device} but the schedule is on {steps.val.device}"
+            f"{what} is on {x.device} but the schedule is on {steps.slots.device}"
         )
     if not x.is_contiguous():
         raise ValueError(f"{what} must be contiguous")
@@ -141,9 +182,13 @@ def _check_cuda(steps: DeviceSteps, x: torch.Tensor, what: str) -> None:
 
 
 def spmm_window(steps: DeviceSteps, b: torch.Tensor, *, ktile: int = 128):
-    """Permuted window output ``[n_windows * R, kdim]`` in f32. On CUDA only
-    the live slots (``row_map >= 0``) are written; dead slots hold
-    whatever the allocation held."""
+    """Partial output ``[n_parts, kdim]`` in f32: row p is the sum of
+    ``val * B[col]`` over the p-th run of equal ``lrow`` among the live
+    slots of its step. Padding slots are skipped, so a non-finite B row is
+    never multiplied into a padding slot. ``ktile`` is accepted as a hint
+    and not used: the kernel lays out its columns from kdim, dtype and B's
+    size (``lane_mapping``)."""
+    del ktile
     if b.device.type == "cpu":
         return spmm_window_plain(steps, b)
     _check_cuda(steps, b, "B")
@@ -152,25 +197,24 @@ def spmm_window(steps: DeviceSteps, b: torch.Tensor, *, ktile: int = 128):
         raise ValueError(f"B has shape {tuple(b.shape)}; the schedule needs [{n}, k]")
     if b.dtype not in _DTYPES:
         raise ValueError(f"B is {b.dtype}; the kernel takes float32 or bfloat16")
+    return _window(steps, b, lane_mapping(b.shape[1], b.dtype,
+                                          b.data_ptr() % 16 == 0, n))
+
+
+def _window(steps: DeviceSteps, b: torch.Tensor, mapping) -> torch.Tensor:
+    """Launch the window kernel on a checked B with the lanes ``mapping``
+    (``lane_mapping``'s tuple)."""
+    vec, gw, nc, _ = mapping
     kdim = b.shape[1]
-    r = steps.rows_per_window
-    kt = max(1, min(ktile, kdim, 1024))
-    if r * kt * 4 > MAX_SMEM:
-        raise ValueError(
-            f"rows_per_window={r} x ktile={kt} needs {r * kt * 4} bytes of "
-            f"shared memory; a block has {MAX_SMEM}"
-        )
-    out = torch.empty((steps.n_windows * r, kdim), dtype=torch.float32,
-                      device=b.device)
+    out = torch.empty((steps.n_parts, kdim), dtype=torch.float32, device=b.device)
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream().cuda_stream
         LAUNCHES["spmm_balanced"] += 1
         err = _lib().awb_spmm_window(
-            steps.val.data_ptr(), steps.lrow.data_ptr(), steps.lcol.data_ptr(),
-            steps.cblk.data_ptr(), steps.win_ptr.data_ptr(),
-            steps.row_map.data_ptr(), steps.n_windows, steps.nnz_per_step, r,
-            steps.cols_per_block, n, b.data_ptr(), int(b.dtype == torch.bfloat16),
-            kdim, kt, out.data_ptr(), stream,
+            steps.slots.data_ptr(), steps.slot_ptr.data_ptr(),
+            steps.part_ptr.data_ptr(), steps.n_steps, b.data_ptr(),
+            int(b.dtype == torch.bfloat16), kdim, vec, gw, nc, out.data_ptr(),
+            stream,
         )
     if err:
         raise RuntimeError(f"awb_spmm_window launch failed: cudaError {err}")
@@ -178,23 +222,23 @@ def spmm_window(steps: DeviceSteps, b: torch.Tensor, *, ktile: int = 128):
 
 
 def spmm_window_plain(steps: DeviceSteps, b: torch.Tensor) -> torch.Tensor:
-    """Plain version of the window kernel: gather, multiply and
-    ``index_add_`` into the permuted output, in f32, over chunks of steps
-    so the ``[slots, kdim]`` intermediate stays bounded. Dead slots are 0."""
-    n = steps.shape[1]
-    k, r, cb = steps.nnz_per_step, steps.rows_per_window, steps.cols_per_block
+    """Plain version of the window kernel on the same slot records: gather
+    each live slot's B row, scale it by the slot's value and ``index_add_``
+    it into its partial, in f32. Partials are numbered by run in slot order,
+    so a slot's partial is the count of run starts up to it, less one. Runs
+    over chunks of slots so the ``[slots, kdim]`` intermediate stays
+    bounded."""
     kdim = b.shape[1]
-    out = torch.zeros((steps.n_windows * r, kdim), dtype=torch.float32,
-                      device=b.device)
-    n_steps = steps.win.shape[0]
-    chunk = max(1, GATHER_ELEMS // max(1, k * kdim))
-    for lo in range(0, n_steps, chunk):
-        sl = slice(lo, lo + chunk)
-        gcol = steps.cblk[sl].long()[:, None] * cb + steps.lcol[sl].long()
-        gcol = torch.clamp(gcol, max=n - 1).reshape(-1)
-        slot = (steps.win[sl].long()[:, None] * r + steps.lrow[sl].long())
-        g = b[gcol].float() * steps.val[sl].reshape(-1)[:, None]
-        out.index_add_(0, slot.reshape(-1), g)
+    out = torch.zeros((steps.n_parts, kdim), dtype=torch.float32, device=b.device)
+    n_live = steps.slots.shape[0]
+    chunk = max(1, GATHER_ELEMS // max(1, kdim))
+    last = -1  # the partial of the slot before the chunk
+    for lo in range(0, n_live, chunk):
+        head, bits = steps.slots[lo:lo + chunk].unbind(dim=1)
+        part = last + torch.cumsum(head < 0, dim=0)
+        last = int(part[-1])
+        g = b[head & 0x7FFFFFFF].float() * bits.view(torch.float32)[:, None]
+        out.index_add_(0, part, g)
     return out
 
 
@@ -203,20 +247,22 @@ def spmm_window_plain(steps: DeviceSteps, b: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def spmm_epilogue(steps: DeviceSteps, out_perm: torch.Tensor, dtype,
+def spmm_epilogue(steps: DeviceSteps, part: torch.Tensor, dtype,
                   row_unperm: torch.Tensor | None = None) -> torch.Tensor:
-    """Matrix rows ``[m, kdim]`` in ``dtype`` from the permuted output: row
-    ``i`` sums the live slots of row ``row_unperm[i]`` (or ``i``)."""
-    if out_perm.device.type == "cpu":
-        return spmm_epilogue_plain(steps, out_perm, dtype, row_unperm)
-    _check_cuda(steps, out_perm, "the permuted output")
+    """Matrix rows ``[m, kdim]`` in ``dtype`` from the partial output: row
+    ``i`` sums, in ascending order, the partials of row ``row_unperm[i]``
+    (or ``i``). The kernel reads 16-byte vectors of ``part`` when kdim is a
+    multiple of 4 and ``part`` is 16-byte aligned, else single floats."""
+    if part.device.type == "cpu":
+        return spmm_epilogue_plain(steps, part, dtype, row_unperm)
+    _check_cuda(steps, part, "the partial output")
     m = steps.shape[0]
-    if out_perm.dtype != torch.float32 or out_perm.dim() != 2 or (
-        out_perm.shape[0] != steps.n_windows * steps.rows_per_window
+    if part.dtype != torch.float32 or part.dim() != 2 or (
+        part.shape[0] != steps.n_parts
     ):
         raise ValueError(
-            f"permuted output is {out_perm.dtype} {tuple(out_perm.shape)}; "
-            f"the epilogue needs float32 [{steps.n_windows * steps.rows_per_window}, k]"
+            f"partial output is {part.dtype} {tuple(part.shape)}; "
+            f"the epilogue needs float32 [{steps.n_parts}, k]"
         )
     if dtype not in _DTYPES:
         raise ValueError(f"output dtype {dtype}; the kernel writes float32 or bfloat16")
@@ -226,30 +272,30 @@ def spmm_epilogue(steps: DeviceSteps, out_perm: torch.Tensor, dtype,
         if row_unperm.dtype != torch.int32 or row_unperm.shape != (m,):
             raise ValueError(f"row_unperm must be int32 [{m}]")
         unperm_ptr = row_unperm.data_ptr()
-    kdim = out_perm.shape[1]
-    out = torch.empty((m, kdim), dtype=dtype, device=out_perm.device)
-    with torch.cuda.device(out_perm.device):
+    kdim = part.shape[1]
+    out = torch.empty((m, kdim), dtype=dtype, device=part.device)
+    with torch.cuda.device(part.device):
         stream = torch.cuda.current_stream().cuda_stream
         LAUNCHES["spmm_epilogue"] += 1
         err = _lib().awb_spmm_epilogue(
-            out_perm.data_ptr(), steps.epi_ptr.data_ptr(),
-            steps.epi_slot.data_ptr(), unperm_ptr, m, kdim, out.data_ptr(),
-            int(dtype == torch.bfloat16), stream,
+            part.data_ptr(), steps.epi_ptr.data_ptr(), steps.epi_part.data_ptr(),
+            unperm_ptr, m, kdim, out.data_ptr(), int(dtype == torch.bfloat16),
+            stream,
         )
     if err:
         raise RuntimeError(f"awb_spmm_epilogue launch failed: cudaError {err}")
     return out
 
 
-def spmm_epilogue_plain(steps: DeviceSteps, out_perm: torch.Tensor, dtype,
+def spmm_epilogue_plain(steps: DeviceSteps, part: torch.Tensor, dtype,
                         row_unperm: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain version of the epilogue: ``index_add_`` of the live slots into
-    their rows in f32, then the un-permutation and the cast."""
-    rm = steps.row_map.long()
-    live = rm >= 0
-    out = torch.zeros((steps.shape[0], out_perm.shape[1]), dtype=torch.float32,
-                      device=out_perm.device)
-    out.index_add_(0, rm[live], out_perm[live])
+    """Plain version of the epilogue: ``index_add_`` of each row's partials
+    into it in f32, then the un-permutation and the cast."""
+    m = steps.shape[0]
+    rows = torch.repeat_interleave(
+        torch.arange(m, device=part.device), steps.epi_ptr.diff().long())
+    out = torch.zeros((m, part.shape[1]), dtype=torch.float32, device=part.device)
+    out.index_add_(0, rows, part[steps.epi_part.long()])
     if row_unperm is not None:
         out = out[row_unperm.long()]
     return out.to(dtype)
@@ -274,13 +320,13 @@ def spmm_balanced(sched_or_steps, b: torch.Tensor, *, ktile: int = 128,
     once per device and memoized, or its ``DeviceSteps``), in ``b``'s
     dtype with f32 accumulation."""
     steps = _steps_for(sched_or_steps, b.device)
-    out_perm = spmm_window(steps, b, ktile=ktile)
-    return spmm_epilogue(steps, out_perm, b.dtype, row_unperm)
+    return spmm_epilogue(steps, spmm_window(steps, b, ktile=ktile), b.dtype,
+                         row_unperm)
 
 
 def spmm_balanced_plain(sched_or_steps, b: torch.Tensor, *,
                         row_unperm: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of ``spmm_balanced`` on any device."""
     steps = _steps_for(sched_or_steps, b.device)
-    out_perm = spmm_window_plain(steps, b)
-    return spmm_epilogue_plain(steps, out_perm, b.dtype, row_unperm)
+    return spmm_epilogue_plain(steps, spmm_window_plain(steps, b), b.dtype,
+                               row_unperm)

@@ -18,6 +18,7 @@ from repro_torch.core import gcn as tgcn  # noqa: E402
 from repro_torch.core import reorder as treorder  # noqa: E402
 from repro_torch.core import schedule as tsched  # noqa: E402
 from repro_torch.graphs import synth as tsynth  # noqa: E402
+from repro_torch.kernels import spmm_cuda  # noqa: E402
 from repro_torch.tuning import registry as treg  # noqa: E402
 
 KW = dict(nnz_per_step=32, rows_per_window=16)
@@ -168,8 +169,10 @@ def test_device_steps_memoized_and_released():
     s = tsched.build_balanced_schedule(ta, 16, 8)
     a = texe.device_step_arrays(s, "cpu")
     assert texe.device_step_arrays(s, "cpu") is a
-    assert a.n_windows == s.n_windows and a.nbytes > 0
-    assert np.array_equal(a.val.numpy(), s.val.reshape(s.n_steps, 16))
+    plan = spmm_cuda.kernel_plan(s)
+    assert a.n_steps == s.n_steps and a.nbytes > 0
+    assert a.n_parts == int(plan["part_ptr"][-1])
+    assert np.array_equal(a.slots.numpy(), plan["slots"])
     texe.release_device_steps(s, "cpu")
     assert texe.device_step_arrays(s, "cpu") is not a
     texe.release_device_steps(s)

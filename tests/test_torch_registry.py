@@ -101,6 +101,7 @@ def test_release_graph_drops_schedules_executors_and_uploads():
     fa = treg.graph_fingerprint(ta)
     ex_a = treg.get_executor(ta, routing="onehot", reorder="degree", device="cpu")
     ex_b = treg.get_executor(tb, device="cpu")
+    texe.device_step_arrays(ex_a.sched, "cpu")  # the kernels' upload
     assert (id(ex_a.sched), "cpu") in texe._DEVICE_STEPS
     treg.release_graph(fa)
     assert (id(ex_a.sched), "cpu") not in texe._DEVICE_STEPS

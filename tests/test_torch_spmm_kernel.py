@@ -88,22 +88,134 @@ def test_both_schedules(builder):
            "float32")
 
 
-def test_kernel_plan_indexes_windows_and_live_slots():
+#: schedules whose output slots take sums from several steps, beside the
+#: default one-step windows: (builder, kwargs)
+SPANNING = {
+    "balanced": ("build_balanced_schedule", {}),
+    "blocked_evil": ("build_balanced_schedule",
+                     dict(cols_per_block=32, evil_threshold=8)),
+    "wide_windows": ("build_balanced_schedule", dict(window_nnz=64)),
+    "naive": ("build_naive_schedule", {}),
+}
+
+
+def _spanning(kind, ta, ja=None):
+    builder, kw = SPANNING[kind]
+    ts = getattr(tsched, builder)(ta, 16, 8, **kw)
+    js = None if ja is None else getattr(jsched, builder)(ja, 16, 8, **kw)
+    return ts, js
+
+
+@pytest.mark.parametrize("kind", sorted(SPANNING))
+def test_kernel_plan_indexes_windows_and_live_slots(kind):
     ta, _, _ = _case(96, 0.1, 1.2, 1, 4)
-    s = tsched.build_balanced_schedule(ta, 16, 8, cols_per_block=32, evil_threshold=8)
+    s, _ = _spanning(kind, ta)
+    if kind == "blocked_evil":
+        assert s.n_evil_chunks > 0
     plan = spmm_cuda.kernel_plan(s)
-    ptr = plan["win_ptr"]
-    assert ptr.shape == (s.n_windows + 1,) and ptr[-1] == s.n_steps
-    for w in range(s.n_windows):
-        assert np.all(s.win_id[ptr[w]:ptr[w + 1]] == w)
-    epi_ptr, epi_slot = plan["epi_ptr"], plan["epi_slot"]
-    assert epi_ptr[-1] == epi_slot.size == int((s.row_map >= 0).sum())
+    k = s.nnz_per_step
+    val = s.val.reshape(-1, k)
+    lrow = s.local_row.reshape(-1, k)
+    live, ptr = np.diff(plan["slot_ptr"]), plan["part_ptr"]
+    assert live.shape == (s.n_steps,) and ptr.shape == (s.n_steps + 1,)
+    slots = plan["slots"]
+    assert slots.shape == (plan["slot_ptr"][-1], 2) and slots.dtype == np.int32
+    n_parts = int(ptr[-1])
+    part_row = np.empty(n_parts, np.int64)
+    for step in range(s.n_steps):
+        n_live = int(live[step])
+        # padding is the step's tail; the live prefix ends on a non-zero
+        assert np.all(val[step, n_live:] == 0)
+        assert n_live == 0 or val[step, n_live - 1] != 0
+        rows = lrow[step, :n_live]
+        assert np.all(np.diff(rows) >= 0)  # runs of one row each
+        runs = np.unique(rows)
+        assert ptr[step + 1] - ptr[step] == runs.size
+        # each live slot's record: its B row, a run flag, its value's bits
+        rec = slots[plan["slot_ptr"][step]:plan["slot_ptr"][step + 1]]
+        gcol = np.minimum(s.col_block[step] * s.cols_per_block
+                          + s.local_col.reshape(-1, k)[step, :n_live], 95)
+        assert np.array_equal(rec[:, 0] & 0x7FFFFFFF, gcol)
+        flag = np.r_[True, rows[1:] != rows[:-1]][:n_live]
+        assert np.array_equal(rec[:, 0] < 0, flag)
+        assert np.array_equal(rec[:, 1].view(np.float32), val[step, :n_live])
+        out_slots = s.win_id[step] * s.rows_per_window + runs
+        part_row[ptr[step]:ptr[step + 1]] = s.row_map[out_slots]
+    assert np.all(part_row >= 0)
+    epi_ptr, epi_part = plan["epi_ptr"], plan["epi_part"]
+    assert epi_ptr.shape == (s.shape[0] + 1,) and epi_ptr[-1] == epi_part.size
+    assert np.array_equal(np.sort(epi_part), np.arange(n_parts))
     for row in range(s.shape[0]):
-        slots = epi_slot[epi_ptr[row]:epi_ptr[row + 1]]
-        assert np.all(s.row_map[slots] == row) and np.all(np.diff(slots) > 0)
-    shuffled = tsched.Schedule(**{**s.__dict__, "win_id": s.win_id[::-1].copy()})
-    with pytest.raises(ValueError, match="two step runs"):
-        spmm_cuda.kernel_plan(shuffled)
+        parts = epi_part[epi_ptr[row]:epi_ptr[row + 1]]
+        assert np.all(part_row[parts] == row) and np.all(np.diff(parts) > 0)
+    # a partial never takes sums from two steps, so step order is free
+    rev = tsched.Schedule(**{
+        **s.__dict__, "win_id": s.win_id[::-1].copy(),
+        "col_block": s.col_block[::-1].copy(),
+        "val": val[::-1].reshape(-1).copy(), "local_row": lrow[::-1].reshape(-1).copy(),
+        "local_col": s.local_col.reshape(-1, k)[::-1].reshape(-1).copy()})
+    b = torch.from_numpy(np.random.default_rng(4).standard_normal((96, 6)).astype(
+        np.float32))
+    torch.testing.assert_close(spmm_cuda.spmm_balanced(rev, b),
+                               spmm_cuda.spmm_balanced(s, b), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", sorted(SPANNING))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_path_matches_pallas_on_spanning_schedules(kind, dtype):
+    ta, ja, b = _case(96, 0.1, 1.2, 11, 4)
+    ts, js = _spanning(kind, ta, ja)
+    for key in ("win_id", "col_block", "val", "local_row", "local_col", "row_map"):
+        assert np.array_equal(getattr(ts, key), np.asarray(getattr(js, key)))
+    jb = jnp.asarray(b).astype(dtype)
+    want = np.asarray(spmm_pallas.spmm_balanced(js, jb, ktile=8, interpret=True)
+                      .astype(jnp.float32))
+    got = spmm_cuda.spmm_balanced(ts, torch.from_numpy(b).to(getattr(torch, dtype)))
+    assert got.dtype == getattr(torch, dtype)
+    _check(got.float().numpy(), want, dtype)
+    _check(got.float().numpy(), np.asarray(jspmm.spmm_coo(ja, jb.astype(
+        jnp.float32))), dtype)
+
+
+def test_padding_slots_gather_nothing():
+    # no non-zero reads column 0, so only padding slots (lcol 0) point at it
+    rng = np.random.default_rng(8)
+    rows = np.repeat(np.arange(40), 3)
+    cols = rng.integers(1, 40, rows.size)
+    key = np.unique(rows * 40 + cols)
+    a = tfmt.coo_from_arrays(key // 40, key % 40, np.ones(key.size, np.float32),
+                             (40, 40))
+    s = tsched.build_balanced_schedule(a, 16, 8)
+    assert np.any(np.diff(spmm_cuda.kernel_plan(s)["slot_ptr"]) < 16)
+    b = torch.ones((40, 5))
+    b[0] = float("inf")
+    got = spmm_cuda.spmm_balanced(s, b)
+    assert torch.isfinite(got).all()
+    b[0] = 1.0
+    torch.testing.assert_close(got, tspmm.spmm_coo(a, b))
+
+
+REDDIT_ROWS = 232_965
+
+
+@pytest.mark.parametrize("kdim,dtype,rows,mapping,idle", [
+    (512, torch.float32, REDDIT_ROWS, (4, 8, 1, 16), 0.0),
+    (128, torch.float32, REDDIT_ROWS, (4, 8, 1, 4), 0.0),
+    (164, torch.float32, REDDIT_ROWS, (4, 16, 3, 1), 7 / 48),
+    (41, torch.float32, REDDIT_ROWS, (1, 16, 3, 1), 7 / 48),
+    (512, torch.float32, 1000, (4, 32, 4, 1), 0.0),
+    (128, torch.float32, 1000, (4, 32, 1, 1), 0.0),
+    (512, torch.bfloat16, REDDIT_ROWS, (8, 8, 1, 8), 0.0),
+    (512, torch.bfloat16, 1000, (8, 32, 2, 1), 0.0),
+    (1024, torch.float32, 1000, (4, 32, 4, 2), 0.0),
+])
+def test_lane_mapping(kdim, dtype, rows, mapping, idle):
+    assert spmm_cuda.lane_mapping(kdim, dtype, rows=rows) == mapping
+    vec, gw, nc, panels = mapping
+    assert 1 - kdim // vec / (panels * gw * nc) == pytest.approx(idle)
+    vec, gw, nc, panels = spmm_cuda.lane_mapping(kdim, dtype, False, rows)
+    assert vec == 1 and panels * gw * nc >= kdim
+    assert gw in spmm_cuda.GROUP_WIDTHS and 1 <= nc <= spmm_cuda.MAX_VECTORS
 
 
 def test_plain_window_and_epilogue_with_unperm():
@@ -111,13 +223,13 @@ def test_plain_window_and_epilogue_with_unperm():
     s = tsched.build_balanced_schedule(ta, 16, 8, evil_threshold=8)
     steps = texe.device_step_arrays(s, "cpu")
     tb = torch.from_numpy(b)
-    out_perm = spmm_cuda.spmm_window(steps, tb)
-    assert out_perm.dtype == torch.float32
-    assert out_perm.shape == (s.n_windows * 8, 7)
-    assert torch.all(out_perm[torch.from_numpy(s.row_map) < 0] == 0)
+    part = spmm_cuda.spmm_window(steps, tb)
+    assert part.dtype == torch.float32
+    assert part.shape == (steps.n_parts, 7)
+    assert steps.n_parts == int(spmm_cuda.kernel_plan(s)["part_ptr"][-1])
     inv = torch.from_numpy(np.random.default_rng(3).permutation(120).astype(np.int32))
-    full = spmm_cuda.spmm_epilogue(steps, out_perm, torch.float32)
-    unp = spmm_cuda.spmm_epilogue(steps, out_perm, torch.bfloat16, inv)
+    full = spmm_cuda.spmm_epilogue(steps, part, torch.float32)
+    unp = spmm_cuda.spmm_epilogue(steps, part, torch.bfloat16, inv)
     assert unp.dtype == torch.bfloat16
     torch.testing.assert_close(unp.float(), full[inv.long()].bfloat16().float())
     np.testing.assert_allclose(full.numpy(), tspmm.spmm_coo(ta, tb).numpy(), atol=1e-4)
