@@ -13,7 +13,9 @@ Builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    blocked with evil rows, row-reordered).
 1b. Holds the flash-attention kernel against its plain version over the JAX
    kernel tests' sweep (GQA, Sq < Sk, ragged tiles, causal on and off,
-   windows 8 and 24, bf16) and at D 64 and 128 with S 1000.
+   windows 8 and 24, bf16), at D 64 and 128 with S 1000, and at lengths that
+   cut its query tiles and its cp.async ring at every edge (1, 15, 17, 63,
+   65, 129, 1000; Sq < Sk with windows; every D; GQA groups 1, 2 and 7).
 2. Serves 3 batches of 4 requests on the full-width ``reddit`` graph
    (232,965 nodes, 602 features, hidden 128, 41 classes) through the port's
    GCN path — ``registry.get_executor`` → ``ScheduleExecutor.forward_batch``
@@ -40,7 +42,12 @@ Builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    are further apart than the tolerance.
 5. Times the flash kernel, its plain version and
    ``scaled_dot_product_attention`` (a yardstick the port never calls) at
-   the prefill's shape: B 4, S 2048, H 14, Hkv 2, D 64, causal, f32.
+   the prefill's shape: B 4, S 2048, H 14, Hkv 2, D 64, causal, f32; then
+   the kernel and ``scaled_dot_product_attention`` in bf16 at that shape.
+   In bf16 it also holds every output row to ``ATTN_BF16_ROW_TOL``: the
+   row's RMS error over its RMS. Its bounds: the tensor-core bound of the
+   arithmetic the path issues (3xTF32 in f32, bf16), the CUDA-core f32
+   bound, the softmax's exponentials at 16 ex2 per SM per clock, and HBM.
 
 Float32 matmuls and cuDNN run without TF32 (both flags are set False), so
 every float32 product is full float32. Tolerances, each scaled by
@@ -49,10 +56,12 @@ and 5e-2 (bf16, unscaled) — the JAX package's kernel test tolerances — and
 LM logits 2e-3, its decode-vs-forward tolerance.
 
 Prints the SpMM kernels' registers and spills (``-Xptxas -v``) and the
-window kernel's lane mapping per kdim, a
-``{"kernels": [...]}`` line, a ``{"serving": ...}`` line, a
-``{"lm_serving": ...}`` line, the window kernel's all-gathers-miss bound per
-kdim, the card's name and power limit, and as its last line
+window kernel's lane mapping per kdim, the flash kernel's registers, spills,
+shared bytes and SASS ``HMMA`` count per instantiation (``flash_registers``;
+it fails if one spills or issues no ``HMMA``), a ``{"kernels": [...]}``
+line, a ``{"serving": ...}`` line, a ``{"lm_serving": ...}`` line, the
+window kernel's all-gathers-miss bound per kdim, the flash kernel's bounds
+(``flash_bounds``), the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device, or without the rest of the repository, it exits
 non-zero and prints no result.
@@ -69,9 +78,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM data sheet: HBM3 rate and non-tensor-core float32 rate
+# H100 SXM data sheet: HBM3 rate, non-tensor-core float32 rate, dense
+# tensor-core TF32 and bf16 rates, and the SFU's ex2 per SM per clock
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
+EX2_PER_SM_CLOCK = 16
 REPLACES = {
     "spmm_balanced": "src/repro/kernels/spmm_pallas.py:54",
     "spmm_epilogue": "src/repro/core/schedule.py:898",
@@ -89,8 +102,19 @@ LM_ARCH, LM_PROMPTS, LM_MAX_SEQ, LM_NEW, LM_TOL = (
 # shapes then the configs' head widths at a length no tile divides
 ATTN_SHAPES = [(2, 32, 32, 4, 4, 16), (1, 48, 48, 8, 2, 32), (2, 16, 64, 4, 1, 16),
                (1, 40, 40, 2, 2, 16), (2, 1000, 1000, 4, 2, 64),
-               (2, 1000, 1000, 4, 1, 128)]
+               (2, 1000, 1000, 4, 1, 128),
+               # lengths that cut the query tiles and the kv ring at every
+               # edge, every head width, GQA groups 1, 2 and 7 (qwen2-0.5b's)
+               (1, 1, 1, 2, 2, 64), (2, 15, 15, 7, 1, 32), (1, 17, 17, 14, 2, 64),
+               (1, 63, 63, 4, 2, 128), (1, 65, 65, 2, 1, 16), (2, 129, 129, 2, 2, 32),
+               (1, 129, 129, 14, 2, 64), (1, 15, 63, 2, 2, 16), (1, 1, 129, 4, 2, 64),
+               (1, 65, 1000, 4, 2, 32), (1, 17, 1000, 7, 1, 128),
+               (1, 129, 1000, 14, 2, 16)]
 ATTN_MASKS = [(True, None), (False, None), (True, 8), (True, 24), (False, 24)]
+# the bf16 flash check at the prefill shape beside the JAX tolerance: each
+# output row's RMS error over the row's RMS in the plain version. bf16 keeps
+# 8 significant bits, and rounding P and O each costs at most 2^-9 of a value
+ATTN_BF16_ROW_TOL = 2 ** -7
 
 
 def tol(gold, dtype) -> float:
@@ -458,6 +482,13 @@ def attn_tol(gold, dtype) -> float:
     return 5e-2
 
 
+def attn_row_err(got, gold) -> float:
+    """The largest RMS error of an output row (over D) relative to that
+    row's RMS in ``gold``."""
+    err = (got.float() - gold).pow(2).mean(-1).sqrt()
+    return float((err / gold.pow(2).mean(-1).sqrt().clamp_min(1e-30)).max())
+
+
 def phase_attention_small(dev):
     """The flash kernel vs its plain version (on f32 copies of the same
     inputs) over the sweep. Returns (cases, max |err| in f32)."""
@@ -550,6 +581,11 @@ def phase_lm(dev):
 
     # device time of the prefill alone, then of the prefill and 2 decode steps
     pre, pre_ops = device_split(lambda: eng.run(prompts, 1))
+    if pre["flash_attention"] <= 0.0:
+        raise AssertionError(
+            f"the prefill launched the flash kernel {launches} times, but its device "
+            "split counts no time under flash_attention: the kernel's name no longer "
+            "matches device_split's")
     both, both_ops = device_split(lambda: eng.run(prompts, 3))
     dec = {k: (both[k] - pre[k]) / 2 for k in pre}
 
@@ -605,10 +641,23 @@ def visible_pairs(sq: int, sk: int, causal: bool, window) -> int:
     return int(np.clip(hi - lo, 0, None).sum())
 
 
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock, as ``nvidia-smi`` reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True,
+    ).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
 def phase_attention_time(dev, launches, small_err):
     """The flash kernel vs its plain version and the library call at the
-    prefill's shape; returns its ``kernels`` entry, whose error also covers
-    phase 1b's f32 cases (``small_err``)."""
+    prefill's shape, in f32 and then in bf16 (where each row is also held to
+    ``ATTN_BF16_ROW_TOL``). Returns its ``kernels`` entry, whose error also
+    covers phase 1b's f32 cases (``small_err``), and its bounds at that
+    shape. Kernel and library are timed in turns: kernel, library, library,
+    kernel."""
+    import numpy as np
     import torch
     import torch.nn.functional as F
 
@@ -616,39 +665,126 @@ def phase_attention_time(dev, launches, small_err):
 
     cfg_b, (s, h, hkv, d) = len(LM_PROMPTS), (max(LM_PROMPTS), 14, 2, 64)
     gen = torch.Generator(device=dev).manual_seed(3)
-    q = torch.randn((cfg_b, s, h, d), generator=gen, device=dev)
-    k = torch.randn((cfg_b, s, hkv, d), generator=gen, device=dev)
-    v = torch.randn((cfg_b, s, hkv, d), generator=gen, device=dev)
-    got = tfa.flash_attention(q, k, v, causal=True)
-    gold = tfa.flash_attention_plain(q, k, v, causal=True)
-    err = float((got - gold).abs().max())
-    if not err <= attn_tol(gold, torch.float32):
-        raise AssertionError(f"flash_attention at the prefill shape: max |err| {err}")
-    lib = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                         v.transpose(1, 2), is_causal=True,
-                                         enable_gqa=True).transpose(1, 2)
-    lib_diff = float((lib - gold).abs().max())
-    del got, gold, lib
-    ms = timed_ms(lambda: tfa.flash_attention(q, k, v, causal=True), 20)
-    plain_ms = timed_ms(lambda: tfa.flash_attention_plain(q, k, v, causal=True), 3)
-    lib_ms = timed_ms(lambda: F.scaled_dot_product_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
-        enable_gqa=True), 20)
-    n_bytes = 4 * (2 * q.numel() + k.numel() + v.numel())
-    flops = 4 * d * visible_pairs(s, s, True, None) * cfg_b * h
-    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = flops / PEAK_F32_FLOPS * 1e3
-    return {
+    base = [torch.randn((cfg_b, s, n, d), generator=gen, device=dev)
+            for n in (h, hkv, hkv)]
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+            enable_gqa=True).transpose(1, 2)
+
+    runs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (t.to(dtype) for t in base)
+        got = tfa.flash_attention(q, k, v, causal=True)
+        gold = tfa.flash_attention_plain(q.float(), k.float(), v.float(), causal=True)
+        err = float((got.float() - gold).abs().max())
+        if not err <= attn_tol(gold, dtype):
+            raise AssertionError(f"flash_attention at the prefill shape, {dtype}: "
+                                 f"max |err| {err} > {attn_tol(gold, dtype)}")
+        row_err = attn_row_err(got, gold)
+        if dtype == torch.bfloat16 and not row_err <= ATTN_BF16_ROW_TOL:
+            raise AssertionError(
+                f"flash_attention at the prefill shape, bf16: a row's RMS error is "
+                f"{row_err} of its RMS > {ATTN_BF16_ROW_TOL}")
+        lib_diff = float((sdpa(q, k, v).float() - gold).abs().max())
+        del got, gold
+        ms = [timed_ms(lambda: tfa.flash_attention(q, k, v, causal=True), 20)]
+        lib_ms = [timed_ms(lambda: sdpa(q, k, v), 20) for _ in range(2)]
+        ms.append(timed_ms(lambda: tfa.flash_attention(q, k, v, causal=True), 20))
+        runs[dtype] = (err, row_err, lib_diff, ms, lib_ms)
+    plain_ms = timed_ms(lambda: tfa.flash_attention_plain(*base, causal=True), 3)
+
+    pairs = visible_pairs(s, s, True, None) * cfg_b * h
+    flops = 4 * d * pairs
+    n_elems = 2 * base[0].numel() + base[1].numel() + base[2].numel()
+    bytes_ms = {dt: n_elems * dt.itemsize / PEAK_BYTES_PER_S * 1e3 for dt in runs}
+    tf32_ms = 3 * flops / PEAK_TF32_FLOPS * 1e3  # 3xTF32: three passes
+    bf16_ms = flops / PEAK_BF16_FLOPS * 1e3
+    clock = sm_clock_hz()
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    err32, row32, diff32, ms32, lib32 = runs[torch.float32]
+    err16, row16, diff16, ms16, lib16 = runs[torch.bfloat16]
+    entry = {
         "name": "flash_attention", "route": "cuda", "source": tfa.SOURCE,
         "replaces": tfa.REPLACES, "launches": launches,
-        "max_abs_err": max(err, small_err),
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": lib_ms, "library_max_abs_diff": lib_diff,
-        "flops": flops, "bytes": n_bytes,
+        "max_abs_err": max(err32, small_err),
+        "ms": float(np.mean(ms32)), "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms[torch.float32], tf32_ms),
+        "bound_by": "bytes" if bytes_ms[torch.float32] >= tf32_ms else "operations",
+        "library_ms": float(np.mean(lib32)), "library_max_abs_diff": diff32,
+        "ms_runs": ms32, "library_runs_ms": lib32, "max_row_rel_err": row32,
+        "bf16_ms": float(np.mean(ms16)), "bf16_ms_runs": ms16,
+        "bf16_library_ms": float(np.mean(lib16)), "bf16_library_runs_ms": lib16,
+        "bf16_max_abs_err": err16, "bf16_max_row_rel_err": row16,
+        "bf16_library_max_abs_diff": diff16,
         "per": f"one call at B {cfg_b}, S {s}, H {h}, Hkv {hkv}, D {d}, causal, "
-               "f32; launches counted over one generate (one per layer)",
+               "f32 (bf16_* in bf16); launches counted over one generate (one per "
+               "layer); bound_ms is the tensor-core bound of the f32 path (3xTF32)",
     }
+    # computed, not measured: the bounds of the same call, and what they use
+    bounds = {
+        "tensor_core_f32_ms": tf32_ms, "tensor_core_bf16_ms": bf16_ms,
+        "cuda_core_f32_ms": flops / PEAK_F32_FLOPS * 1e3,
+        "ex2_ms": pairs / (EX2_PER_SM_CLOCK * n_sm * clock) * 1e3,
+        "hbm_f32_ms": bytes_ms[torch.float32], "hbm_bf16_ms": bytes_ms[torch.bfloat16],
+        "bf16_bound_ms": max(bytes_ms[torch.bfloat16], bf16_ms),
+        "flops": flops, "visible_pairs": pairs, "bytes_f32": n_elems * 4,
+        "sm_clock_mhz": clock / 1e6, "sms": n_sm,
+    }
+    return entry, bounds
+
+
+def flash_registers() -> dict:
+    """Registers and spill bytes (ptxas), dynamic shared bytes and SASS
+    ``HMMA`` instructions of each instantiation of the flash kernel; raises
+    if one spills or issues no ``HMMA``."""
+    import re
+    import shutil
+
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention_cuda as tfa
+
+    def instantiation(text):
+        m = re.search(r"flash_attention_kernelI(f|13__nv_bfloat16)Li(\d+)E", text)
+        return f"{'f32' if m.group(1) == 'f' else 'bf16'},{m.group(2)}" if m else None
+
+    regs, name = {}, None
+    for line in _build.BUILD_LOGS.get("flash_attention", "").splitlines():
+        if "Compiling entry function" in line:
+            name = instantiation(line)
+            if name:
+                regs[name] = {"hmma": 0}
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            regs[name]["spill_store_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            regs[name]["registers"] = int(m.group(1))
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    lib = _build.library_path("flash_attention")
+    sass = subprocess.run([tool, "--dump-sass", str(lib)],
+                          check=True, capture_output=True, text=True).stdout
+    name = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = instantiation(m.group(1))
+        elif name in regs and re.search(r"\bHMMA\.", line):
+            regs[name]["hmma"] += 1
+    if len(regs) != 8:
+        raise AssertionError(
+            f"expected 8 flash kernel instantiations, found {sorted(regs)}")
+    for name, r in regs.items():
+        kind, d = name.split(",")
+        r["shared_bytes"] = tfa.shared_bytes(
+            int(d), torch.float32 if kind == "f32" else torch.bfloat16)
+        if r.get("spill_store_bytes", 0) or not r["hmma"]:
+            raise AssertionError(f"flash kernel <{name}> spills or issues no HMMA: {r}")
+    return regs
 
 
 def main() -> int:
@@ -670,6 +806,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     for name, log in _build.BUILD_LOGS.items():
         print(f"[build] {name}.cu in {build_s:.1f} s\n{log.strip()}", file=sys.stderr)
+    flash_regs = flash_registers()
 
     t0 = time.perf_counter()
     n_cases = phase_small(dev)
@@ -691,7 +828,8 @@ def main() -> int:
     lm, attn_launches = phase_lm(dev)
     print(f"[phase 4] served {LM_ARCH} in {time.perf_counter() - t0:.1f} s",
           file=sys.stderr)
-    kernels.append(phase_attention_time(dev, attn_launches, attn_small_err))
+    attn_entry, attn_bounds = phase_attention_time(dev, attn_launches, attn_small_err)
+    kernels.append(attn_entry)
     print("[phase 5] flash kernel timed", file=sys.stderr)
     serving["build_s"] = build_s
     serving["card"] = card
@@ -699,11 +837,15 @@ def main() -> int:
 
     # the SpMM kernels' registers and spills, and the window kernel's lanes
     print(json.dumps({"spmm_registers": kernel_registers(), "spmm_lanes": lanes}))
+    print(json.dumps({"flash_registers": flash_regs}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"lm_serving": lm}))
     # the window kernel's bound if every gathered B row came from HBM, per kdim
     print(json.dumps({"spmm_balanced_bound_all_miss_ms": all_miss}))
+    # the flash kernel's bounds at the prefill shape: tensor cores (3xTF32 in
+    # f32, bf16), CUDA cores (f32), the softmax's ex2 and HBM
+    print(json.dumps({"flash_bounds": attn_bounds}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

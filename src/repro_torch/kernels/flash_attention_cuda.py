@@ -52,7 +52,15 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.awb_flash_attention.argtypes = [p] * 4 + [i] * 8 + [ctypes.c_float, i, p]
     lib.awb_flash_attention.restype = i
+    lib.awb_flash_attention_smem.argtypes = [i, i]
+    lib.awb_flash_attention_smem.restype = i
     return lib
+
+
+def shared_bytes(d: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block of the kernel at head width ``d``
+    (builds the kernel on first use)."""
+    return _lib().awb_flash_attention_smem(d, int(dtype == torch.bfloat16))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window) -> None:
@@ -73,7 +81,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     scale: float | None = None) -> torch.Tensor:
     """Attention ``[B, Sq, H, D]`` in q's dtype. Tensors on the CPU run the
-    plain version; CUDA tensors run the kernel."""
+    plain version; CUDA tensors (contiguous, 16-byte aligned) run the
+    kernel.
+
+    A NaN in q or k gives NaN in every output row that sees it, as the plain
+    version does. A NaN in v reaches the rows of each tile of keys that the
+    kernel visits; the plain version, which also multiplies the masked
+    keys' zero weights, spreads it to every row of the head."""
     _check(q, k, v, window)
     devices = {t.device for t in (q, k, v)}
     if all(t.device.type == "cpu" for t in (q, k, v)):
@@ -87,6 +101,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "kernel takes all float32 or all bfloat16")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous [B, S, H, D]")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v must start on a 16-byte boundary: the kernel "
+                         "copies them with 16-byte cp.async")
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     if d not in HEAD_DIMS:

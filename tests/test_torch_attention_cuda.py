@@ -26,6 +26,20 @@ SHAPES = [
     (1, 40, 40, 2, 2, 16),
     (1, 1000, 1000, 4, 2, 64),
     (1, 1000, 1000, 4, 1, 128),
+    # lengths that cut the 64-query tiles and the 32/64-key cp.async ring at
+    # every edge, every head width, GQA groups of 1, 2 and 7 (qwen2-0.5b's)
+    (1, 1, 1, 2, 2, 64),
+    (2, 15, 15, 7, 1, 32),
+    (1, 17, 17, 14, 2, 64),
+    (1, 63, 63, 4, 2, 128),
+    (1, 65, 65, 2, 1, 16),
+    (2, 129, 129, 2, 2, 32),
+    (1, 129, 129, 14, 2, 64),
+    (1, 15, 63, 2, 2, 16),
+    (1, 1, 129, 4, 2, 64),
+    (1, 65, 1000, 4, 2, 32),
+    (1, 17, 1000, 7, 1, 128),
+    (1, 129, 1000, 14, 2, 16),
 ]
 
 
@@ -65,11 +79,33 @@ def test_kernel_matches_plain_version(dev, shape, causal, window, dtype):
     assert float((got.float() - gold).abs().max()) <= _tol(gold, dtype)
 
 
-def test_kernel_is_deterministic(dev):
-    q, k, v = _qkv(dev, 1, 2, 300, 300, 8, 2, 64)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_is_deterministic(dev, d, dtype):
+    q, k, v = _qkv(dev, 1, 2, 300, 300, 8, 2, d, dtype=dtype)
     first = tfa.flash_attention(q, k, v)
     for _ in range(3):
         assert torch.equal(tfa.flash_attention(q, k, v), first)
+
+
+@pytest.mark.parametrize("operand", ["q", "k"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nan_reaches_the_rows_that_see_it(dev, operand, d, dtype):
+    """The card's canonical NaN (0x7fffffff), which a carry in the tf32
+    rounding would turn into -0, comes out as NaN in exactly the rows where
+    the plain version gives NaN; the other rows keep their tolerance."""
+    qkv = dict(zip("qkv", _qkv(dev, 4, 2, 130, 130, 4, 2, d)))
+    bits = qkv[operand].view(torch.int32)
+    bits[0, 70, 1, 5] = 0x7FFFFFFF
+    bits[1, 3, 0, d - 1] = 0x7FFFFFFF
+    q, k, v = (qkv[n].to(dtype) for n in "qkv")
+    got = tfa.flash_attention(q, k, v).float()
+    gold = tfa.flash_attention_plain(q.float(), k.float(), v.float())
+    assert gold.isnan().any() and not gold.isnan().all()
+    assert torch.equal(got.isnan(), gold.isnan())
+    keep = ~gold.isnan()
+    assert float((got[keep] - gold[keep]).abs().max()) <= _tol(gold[keep], dtype)
 
 
 def test_ops_dispatch_on_the_card(dev):
@@ -122,6 +158,9 @@ def test_wrapper_rejects_bad_operands(dev):
         tfa.flash_attention(q, k.to(torch.bfloat16), v)
     with pytest.raises(ValueError, match="float32 or all bfloat16"):
         tfa.flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="16-byte"):
+        shifted = torch.zeros(q.numel() + 1, device=dev)[1:].view(q.shape)
+        tfa.flash_attention(shifted, k, v)
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
     with pytest.raises(ValueError, match="cuda"):
