@@ -250,9 +250,9 @@ class ScheduleExecutor:
     **original** row order. On CUDA the epilogue kernel applies it in the
     same pass.
 
-    ``bf16_accumulate=True`` runs the CPU routing bodies' multiplies and
-    accumulations in bfloat16; the CUDA kernel accumulates in f32 and
-    raises ``NotImplementedError`` for it.
+    ``bf16_accumulate=True`` runs the multiplies and accumulations in
+    bfloat16: in the CPU routing bodies, and on CUDA through the kernels'
+    bf16-accumulate variant (``spmm_cuda``, ``acc_dtype=torch.bfloat16``).
     """
 
     def __init__(
@@ -270,11 +270,6 @@ class ScheduleExecutor:
         self.ktile = ktile
         self.bf16_accumulate = bf16_accumulate
         self.device = resolve_device(device)
-        if bf16_accumulate and self.device.type == "cuda":
-            raise NotImplementedError(
-                "bf16_accumulate is not implemented in the CUDA kernel, "
-                "which accumulates in float32"
-            )
         k = sched.nnz_per_step
         r = sched.rows_per_window
         cb = sched.cols_per_block
@@ -290,7 +285,6 @@ class ScheduleExecutor:
         if self.device.type == "cuda":
             self._steps = device_step_arrays(sched, self.device)
             self.device_bytes = self._steps.nbytes
-            self._spmm_impl = self._kernel_impl
         elif self.routing == GATHER:
             gcol, tgt, val = _gather_slots(sched)
             # pad the flat slot stream to a whole number of chunks so the
@@ -311,11 +305,9 @@ class ScheduleExecutor:
             self.device_bytes = int(
                 self._gcol.nbytes + self._tgt.nbytes + self._val.nbytes
             )
-            self._spmm_impl = self._gather_impl
         else:
             self._onehot = _onehot_steps(sched, self.device)
             self.device_bytes = sum(t.nbytes for t in self._onehot)
-            self._spmm_impl = self._onehot_impl
         if self._unperm is not None:
             self.device_bytes += int(self._unperm.nbytes)
 
@@ -387,11 +379,24 @@ class ScheduleExecutor:
 
     # ---- routing bodies ----------------------------------------------------
 
+    def _spmm_impl(self, b: torch.Tensor) -> torch.Tensor:
+        """The body chosen at construction: the kernels on CUDA, else the
+        routing's CPU body. A method, not a bound method kept on the
+        instance: that would be a reference cycle, and the executor's device
+        arrays would then outlive its last reference until the cyclic
+        garbage collector ran."""
+        if self.device.type == "cuda":
+            return self._kernel_impl(b)
+        if self.routing == GATHER:
+            return self._gather_impl(b)
+        return self._onehot_impl(b)
+
     def _kernel_impl(self, b: torch.Tensor) -> torch.Tensor:
         """The hand-written kernels: window accumulation, then the epilogue
-        (with the row un-permutation folded in)."""
+        (with the row un-permutation folded in), in the accumulator dtype."""
         return spmm_cuda.spmm_balanced(
-            self._steps, b.contiguous(), ktile=self.ktile, row_unperm=self._unperm
+            self._steps, b.contiguous(), ktile=self.ktile, row_unperm=self._unperm,
+            acc_dtype=self._acc_dtype,
         )
 
     def _gather_impl(self, b: torch.Tensor) -> torch.Tensor:

@@ -73,6 +73,20 @@
 //   are not). The Pallas kernel adds each step into an output block of B's
 //   dtype; here runs and the epilogue accumulate in f32 and round once.
 //
+// bf16 accumulation (BF16ACC, `acc_bf16 = 1`)
+//   The variant of the executor's `bf16_accumulate` option, which the
+//   Pallas kernel lacks: src/repro/core/executor.py:_gather_impl with a
+//   bf16 accumulator (:666-690) rounds B and the slot values to bf16,
+//   rounds each product and each running sum after every add. Here the
+//   same work unit runs with each rounding written out (`Acc<true>`): the
+//   slot value and the gathered element are rounded to bf16, the product
+//   (exact in f32 for two bf16 values) and every sum of a run are rounded
+//   to bf16, and the epilogue rounds after adding each partial in ascending
+//   order. Partials stay f32 rows that hold bf16 values, so both kernels
+//   share one layout and the variant stays bit-deterministic. Its bound is
+//   the f32 kernel's: the same bytes and multiply-adds; the conversions are
+//   extra instructions on a kernel bound by its gathers.
+//
 // Bound
 //   Memory. Per call the window kernel must read 8 bytes for each live slot
 //   (22.94 M on reddit), 8 per step, and B once, and write n_parts rows of
@@ -143,6 +157,33 @@ __host__ __device__ constexpr int unroll() {
   return (NC == 1 || VEC == 1) ? 4 : 1;
 }
 
+// The accumulation of one product or partial: f32 (fused multiply-add), or
+// bf16 with each rounding of the executor's bf16 path written out.
+template <bool BF16ACC>
+struct Acc;
+
+template <>
+struct Acc<false> {
+  __device__ static float value(float v) { return v; }
+  __device__ static float madd(float acc, float v, float x) {
+    return fmaf(v, x, acc);
+  }
+  __device__ static float add(float s, float x) { return s + x; }
+};
+
+template <>
+struct Acc<true> {
+  __device__ static float rb(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+  // the slot value, rounded once per slot
+  __device__ static float value(float v) { return rb(v); }
+  __device__ static float madd(float acc, float v, float x) {
+    return rb(__fadd_rn(acc, rb(__fmul_rn(v, rb(x)))));
+  }
+  __device__ static float add(float s, float x) { return rb(__fadd_rn(s, x)); }
+};
+
 template <int VEC>
 __device__ __forceinline__ void store_run(float* q, const float (&a)[VEC]) {
   if constexpr (VEC == 1) {
@@ -158,7 +199,7 @@ __device__ __forceinline__ void store_run(float* q, const float (&a)[VEC]) {
 // slots[i] = {B row | (1 << 31) where a run starts, val's bits}, the live
 // slots of step s at [slot_ptr[s], slot_ptr[s+1]); its runs are partials
 // part_ptr[s], part_ptr[s] + 1, ...
-template <typename T, int VEC, int NC>
+template <typename T, int VEC, int NC, bool BF16ACC>
 __global__ void __launch_bounds__(kThreads)
     spmm_step_kernel(const int2* __restrict__ slots,
                      const int* __restrict__ slot_ptr,
@@ -166,6 +207,7 @@ __global__ void __launch_bounds__(kThreads)
                      const T* __restrict__ b, int n_steps, int kdim, int gw,
                      float* __restrict__ part) {
   using G = Gather<T, VEC>;
+  using A = Acc<BF16ACC>;
   constexpr int U = unroll<VEC, NC>();
   const int64_t group =
       (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / gw;
@@ -220,7 +262,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         g[u] = __shfl_sync(gmask, mine.x, u0 + u, gw);
-        v[u] = __int_as_float(__shfl_sync(gmask, mine.y, u0 + u, gw));
+        v[u] = A::value(
+            __int_as_float(__shfl_sync(gmask, mine.y, u0 + u, gw)));
         const T* row = b + static_cast<int64_t>(g[u] & 0x7fffffff) * kdim;
 #pragma unroll
         for (int c = 0; c < NC; ++c)
@@ -238,7 +281,7 @@ __global__ void __launch_bounds__(kThreads)
           for (int c = 0; c < NC; ++c)
 #pragma unroll
             for (int e = 0; e < VEC; ++e)
-              acc[c][e] = fmaf(v[u], G::at(x[u][c], e), acc[c][e]);
+              acc[c][e] = A::madd(acc[c][e], v[u], G::at(x[u][c], e));
         }
       }
     }
@@ -266,7 +309,7 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* q,
   *q = __float2bfloat16(a[0]);
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, bool BF16ACC>
 __global__ void epilogue_kernel(const float* __restrict__ part,
                                 const int* __restrict__ epi_ptr,
                                 const int* __restrict__ epi_part,
@@ -279,6 +322,7 @@ __global__ void epilogue_kernel(const float* __restrict__ part,
   const int row = static_cast<int>(idx / nv);
   const int col = static_cast<int>(idx % nv) * VEC;
   const int src = unperm != nullptr ? __ldg(unperm + row) : row;
+  using A = Acc<BF16ACC>;
   float sum[VEC];
 #pragma unroll
   for (int e = 0; e < VEC; ++e) sum[e] = 0.f;
@@ -288,18 +332,18 @@ __global__ void epilogue_kernel(const float* __restrict__ part,
         part + static_cast<int64_t>(__ldg(epi_part + q)) * kdim + col;
     if constexpr (VEC == 4) {
       const float4 y = __ldcs(reinterpret_cast<const float4*>(x));
-      sum[0] += y.x;
-      sum[1] += y.y;
-      sum[2] += y.z;
-      sum[3] += y.w;
+      sum[0] = A::add(sum[0], y.x);
+      sum[1] = A::add(sum[1], y.y);
+      sum[2] = A::add(sum[2], y.z);
+      sum[3] = A::add(sum[3], y.w);
     } else {
-      sum[0] += __ldcs(x);
+      sum[0] = A::add(sum[0], __ldcs(x));
     }
   }
   store_out(out + static_cast<int64_t>(row) * kdim + col, sum);
 }
 
-template <typename T, int VEC, int NC>
+template <typename T, int VEC, int NC, bool BF16ACC>
 int launch_steps(const int2* slots, const int* slot_ptr, const int* part_ptr,
                  int n_steps, const void* b, int kdim, int gw, float* part,
                  cudaStream_t stream) {
@@ -310,44 +354,86 @@ int launch_steps(const int2* slots, const int* slot_ptr, const int* part_ptr,
   if (blocks > 0x7fffffff || panels > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(blocks), panels);
-  spmm_step_kernel<T, VEC, NC><<<grid, kThreads, 0, stream>>>(
+  spmm_step_kernel<T, VEC, NC, BF16ACC><<<grid, kThreads, 0, stream>>>(
       slots, slot_ptr, part_ptr, static_cast<const T*>(b), n_steps, kdim, gw,
       part);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, bool BF16ACC>
 int launch_steps_nc(int nc, const int2* slots, const int* slot_ptr,
                     const int* part_ptr, int n_steps, const void* b, int kdim,
                     int gw, float* part, cudaStream_t st) {
   switch (nc) {
     case 1:
-      return launch_steps<T, VEC, 1>(slots, slot_ptr, part_ptr, n_steps, b,
+      return launch_steps<T, VEC, 1, BF16ACC>(slots, slot_ptr, part_ptr, n_steps, b,
                                      kdim, gw, part, st);
     case 2:
-      return launch_steps<T, VEC, 2>(slots, slot_ptr, part_ptr, n_steps, b,
+      return launch_steps<T, VEC, 2, BF16ACC>(slots, slot_ptr, part_ptr, n_steps, b,
                                      kdim, gw, part, st);
     case 3:
-      return launch_steps<T, VEC, 3>(slots, slot_ptr, part_ptr, n_steps, b,
+      return launch_steps<T, VEC, 3, BF16ACC>(slots, slot_ptr, part_ptr, n_steps, b,
                                      kdim, gw, part, st);
     case 4:
-      return launch_steps<T, VEC, 4>(slots, slot_ptr, part_ptr, n_steps, b,
+      return launch_steps<T, VEC, 4, BF16ACC>(slots, slot_ptr, part_ptr, n_steps, b,
                                      kdim, gw, part, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, bool BF16ACC>
 int launch_epilogue(const float* part, const int* epi_ptr,
                     const int* epi_part, const int* unperm, int m, int kdim,
                     void* out, cudaStream_t stream) {
   const int64_t total = static_cast<int64_t>(m) * (kdim / VEC);
   const int64_t blocks = (total + kThreads - 1) / kThreads;
-  epilogue_kernel<T, VEC>
+  epilogue_kernel<T, VEC, BF16ACC>
       <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
           part, epi_ptr, epi_part, unperm, m, kdim, static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool BF16ACC>
+int window(int b_bf16, int vec, int nc, const int2* s2, const int* slot_ptr,
+           const int* part_ptr, int n_steps, const void* b, int kdim, int gw,
+           float* part, cudaStream_t st) {
+  if (b_bf16) {
+    if (vec == 8)
+      return launch_steps_nc<__nv_bfloat16, 8, BF16ACC>(
+          nc, s2, slot_ptr, part_ptr, n_steps, b, kdim, gw, part, st);
+    if (vec == 1)
+      return launch_steps_nc<__nv_bfloat16, 1, BF16ACC>(
+          nc, s2, slot_ptr, part_ptr, n_steps, b, kdim, gw, part, st);
+  } else {
+    if (vec == 4)
+      return launch_steps_nc<float, 4, BF16ACC>(nc, s2, slot_ptr, part_ptr,
+                                                n_steps, b, kdim, gw, part, st);
+    if (vec == 1)
+      return launch_steps_nc<float, 1, BF16ACC>(nc, s2, slot_ptr, part_ptr,
+                                                n_steps, b, kdim, gw, part, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <bool BF16ACC>
+int epilogue(const float* part, const int* epi_ptr, const int* epi_part,
+             const int* unperm, int m, int kdim, void* out, int out_bf16,
+             cudaStream_t st) {
+  // 16-byte loads of part need its rows on 16-byte boundaries
+  if (kdim % 4 == 0 && reinterpret_cast<uintptr_t>(part) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(out) % 16 == 0) {
+    if (out_bf16)
+      return launch_epilogue<__nv_bfloat16, 4, BF16ACC>(
+          part, epi_ptr, epi_part, unperm, m, kdim, out, st);
+    return launch_epilogue<float, 4, BF16ACC>(part, epi_ptr, epi_part, unperm,
+                                              m, kdim, out, st);
+  }
+  if (out_bf16)
+    return launch_epilogue<__nv_bfloat16, 1, BF16ACC>(
+        part, epi_ptr, epi_part, unperm, m, kdim, out, st);
+  return launch_epilogue<float, 1, BF16ACC>(part, epi_ptr, epi_part, unperm, m,
+                                            kdim, out, st);
 }
 
 }  // namespace
@@ -359,56 +445,39 @@ extern "C" {
 // b is [n, kdim], f32 (b_bf16 == 0) or bf16. Lane mapping: vec 4 (f32) or
 // 8 (bf16) for 16-byte gathers, which needs kdim % vec == 0 and b 16-byte
 // aligned, else 1; gw lanes a step (8, 16 or 32); nc vectors a lane (1-4);
-// ceil(kdim / (vec * gw * nc)) column panels. Returns cudaError_t.
+// ceil(kdim / (vec * gw * nc)) column panels. acc_bf16 != 0 accumulates as
+// the executor's bf16 path (Acc<true>): part then holds bf16 values.
+// Returns cudaError_t.
 int awb_spmm_window(const int* slots, const int* slot_ptr,
                     const int* part_ptr, int n_steps, const void* b,
-                    int b_bf16, int kdim, int vec, int gw, int nc,
-                    float* part, void* stream) {
+                    int b_bf16, int acc_bf16, int kdim, int vec, int gw,
+                    int nc, float* part, void* stream) {
   if (n_steps == 0 || kdim == 0) return 0;
   if ((gw != 8 && gw != 16 && gw != 32) || kdim % vec != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int2* s2 = reinterpret_cast<const int2*>(slots);
-  if (b_bf16) {
-    if (vec == 8)
-      return launch_steps_nc<__nv_bfloat16, 8>(nc, s2, slot_ptr, part_ptr,
-                                               n_steps, b, kdim, gw, part, st);
-    if (vec == 1)
-      return launch_steps_nc<__nv_bfloat16, 1>(nc, s2, slot_ptr, part_ptr,
-                                               n_steps, b, kdim, gw, part, st);
-  } else {
-    if (vec == 4)
-      return launch_steps_nc<float, 4>(nc, s2, slot_ptr, part_ptr, n_steps, b,
-                                       kdim, gw, part, st);
-    if (vec == 1)
-      return launch_steps_nc<float, 1>(nc, s2, slot_ptr, part_ptr, n_steps, b,
-                                       kdim, gw, part, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (acc_bf16)
+    return window<true>(b_bf16, vec, nc, s2, slot_ptr, part_ptr, n_steps, b,
+                        kdim, gw, part, st);
+  return window<false>(b_bf16, vec, nc, s2, slot_ptr, part_ptr, n_steps, b,
+                       kdim, gw, part, st);
 }
 
 // out[row, :] = sum of part[epi_part[q], :] for q in the CSR segment of row
 // unperm[row] (or row itself when unperm is null), in ascending q, cast to
-// out's dtype (f32 when out_bf16 == 0, else bf16). Returns cudaError_t.
+// out's dtype (f32 when out_bf16 == 0, else bf16); acc_bf16 != 0 rounds the
+// running sum to bf16 after each add. Returns cudaError_t.
 int awb_spmm_epilogue(const float* part, const int* epi_ptr,
                       const int* epi_part, const int* unperm, int m, int kdim,
-                      void* out, int out_bf16, void* stream) {
+                      void* out, int out_bf16, int acc_bf16, void* stream) {
   if (m == 0 || kdim == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // 16-byte loads of part need its rows on 16-byte boundaries
-  if (kdim % 4 == 0 && reinterpret_cast<uintptr_t>(part) % 16 == 0 &&
-      reinterpret_cast<uintptr_t>(out) % 16 == 0) {
-    if (out_bf16)
-      return launch_epilogue<__nv_bfloat16, 4>(part, epi_ptr, epi_part,
-                                               unperm, m, kdim, out, st);
-    return launch_epilogue<float, 4>(part, epi_ptr, epi_part, unperm, m,
-                                     kdim, out, st);
-  }
-  if (out_bf16)
-    return launch_epilogue<__nv_bfloat16, 1>(part, epi_ptr, epi_part, unperm,
-                                             m, kdim, out, st);
-  return launch_epilogue<float, 1>(part, epi_ptr, epi_part, unperm, m, kdim,
-                                   out, st);
+  if (acc_bf16)
+    return epilogue<true>(part, epi_ptr, epi_part, unperm, m, kdim, out,
+                          out_bf16, st);
+  return epilogue<false>(part, epi_ptr, epi_part, unperm, m, kdim, out,
+                         out_bf16, st);
 }
 
 }  // extern "C"

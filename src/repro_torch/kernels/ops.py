@@ -16,6 +16,8 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import spmm_cuda as _sp
 
 BACKENDS = ("cuda", "torch")
+#: the JAX package's SpMM routings (``repro.kernels.ops.spmm``)
+ROUTINGS = ("auto", "gather", "onehot")
 
 
 def default_backend(b: torch.Tensor) -> str:
@@ -28,8 +30,15 @@ def default_backend(b: torch.Tensor) -> str:
 
 
 def spmm(sched: Schedule, b: torch.Tensor, *, backend: str | None = None,
-         ktile: int = 128) -> torch.Tensor:
-    """C = A @ B through the converged AWB schedule."""
+         ktile: int = 128, routing: str = "auto") -> torch.Tensor:
+    """C = A @ B through the converged AWB schedule.
+
+    ``routing`` keeps the JAX signature and is validated as there
+    (``"auto"``, ``"gather"`` or ``"onehot"``). The kernel has one routing,
+    so on the card every value runs the same kernel, and the plain version
+    likewise."""
+    if routing not in ROUTINGS:
+        raise ValueError(f"unknown routing {routing!r}; expected one of {ROUTINGS}")
     backend = backend or default_backend(b)
     if backend == "cuda":
         return _sp.spmm_balanced(sched, b, ktile=ktile)

@@ -20,6 +20,11 @@ live slots and first partial, and the epilogue's CSR. Only these are
 uploaded (``DeviceSteps``); the plain versions read the same records. ``lane_mapping``
 picks the lanes' layout from kdim, dtype and B's size.
 
+``acc_dtype=torch.bfloat16`` selects the kernels' bf16-accumulate variant,
+the port of the executor's ``bf16_accumulate`` option: B and the slot
+values are rounded to bf16, and so is each product and each running sum
+after every add, in the window kernel and in the epilogue alike.
+
 Each wrapper takes its kernel's plain PyTorch version (``*_plain``, which
 computes the same partials) only for a tensor on the CPU. A CUDA tensor
 launches the kernel or raises. ``LAUNCHES`` counts launches per kernel, so a
@@ -42,9 +47,13 @@ from repro_torch.kernels import _build
 #: the CUDA source of both kernels, relative to the repository root
 SOURCE = "src/repro_torch/kernels/csrc/spmm_balanced.cu"
 
-#: kernel launches since the last ``reset_launches()``, by kernel name
-LAUNCHES = {"spmm_balanced": 0, "spmm_epilogue": 0}
+#: kernel launches since the last ``reset_launches()``, by kernel name (the
+#: ``_bf16acc`` entries count the bf16-accumulate variant)
+LAUNCHES = {"spmm_balanced": 0, "spmm_epilogue": 0,
+            "spmm_balanced_bf16acc": 0, "spmm_epilogue_bf16acc": 0}
 
+#: B's and C's dtypes, and the accumulator's (bf16: rounded after every
+#: multiply and add)
 _DTYPES = (torch.float32, torch.bfloat16)
 #: lanes a step may take, and 16-byte vectors a lane may own, in the kernel
 GROUP_WIDTHS = (32, 16, 8)
@@ -158,11 +167,19 @@ def lane_mapping(kdim: int, dtype, aligned: bool = True, rows: int = 0):
 def _lib() -> ctypes.CDLL:
     lib = _build.load("spmm_balanced")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.awb_spmm_window.argtypes = [p, p, p, i, p] + [i] * 5 + [p, p]
+    lib.awb_spmm_window.argtypes = [p, p, p, i, p] + [i] * 6 + [p, p]
     lib.awb_spmm_window.restype = i
-    lib.awb_spmm_epilogue.argtypes = [p, p, p, p, i, i, p, i, p]
+    lib.awb_spmm_epilogue.argtypes = [p, p, p, p, i, i, p, i, i, p]
     lib.awb_spmm_epilogue.restype = i
     return lib
+
+
+def _check_acc(acc_dtype) -> bool:
+    """Whether ``acc_dtype`` asks for the bf16-accumulate variant."""
+    if acc_dtype not in _DTYPES:
+        raise ValueError(f"accumulator dtype {acc_dtype}; the kernels accumulate "
+                         "in float32 or bfloat16")
+    return acc_dtype == torch.bfloat16
 
 
 def _check_cuda(steps: DeviceSteps, x: torch.Tensor, what: str) -> None:
@@ -181,16 +198,19 @@ def _check_cuda(steps: DeviceSteps, x: torch.Tensor, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def spmm_window(steps: DeviceSteps, b: torch.Tensor, *, ktile: int = 128):
+def spmm_window(steps: DeviceSteps, b: torch.Tensor, *, ktile: int = 128,
+                acc_dtype=torch.float32):
     """Partial output ``[n_parts, kdim]`` in f32: row p is the sum of
     ``val * B[col]`` over the p-th run of equal ``lrow`` among the live
-    slots of its step. Padding slots are skipped, so a non-finite B row is
+    slots of its step (accumulated in ``acc_dtype``: with bf16 each row
+    holds bf16 values). Padding slots are skipped, so a non-finite B row is
     never multiplied into a padding slot. ``ktile`` is accepted as a hint
     and not used: the kernel lays out its columns from kdim, dtype and B's
     size (``lane_mapping``)."""
     del ktile
+    _check_acc(acc_dtype)
     if b.device.type == "cpu":
-        return spmm_window_plain(steps, b)
+        return spmm_window_plain(steps, b, acc_dtype=acc_dtype)
     _check_cuda(steps, b, "B")
     n = steps.shape[1]
     if b.dim() != 2 or b.shape[0] != n:
@@ -198,36 +218,42 @@ def spmm_window(steps: DeviceSteps, b: torch.Tensor, *, ktile: int = 128):
     if b.dtype not in _DTYPES:
         raise ValueError(f"B is {b.dtype}; the kernel takes float32 or bfloat16")
     return _window(steps, b, lane_mapping(b.shape[1], b.dtype,
-                                          b.data_ptr() % 16 == 0, n))
+                                          b.data_ptr() % 16 == 0, n), acc_dtype)
 
 
-def _window(steps: DeviceSteps, b: torch.Tensor, mapping) -> torch.Tensor:
+def _window(steps: DeviceSteps, b: torch.Tensor, mapping,
+            acc_dtype=torch.float32) -> torch.Tensor:
     """Launch the window kernel on a checked B with the lanes ``mapping``
     (``lane_mapping``'s tuple)."""
+    bf16acc = _check_acc(acc_dtype)
     vec, gw, nc, _ = mapping
     kdim = b.shape[1]
     out = torch.empty((steps.n_parts, kdim), dtype=torch.float32, device=b.device)
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream().cuda_stream
-        LAUNCHES["spmm_balanced"] += 1
+        LAUNCHES["spmm_balanced_bf16acc" if bf16acc else "spmm_balanced"] += 1
         err = _lib().awb_spmm_window(
             steps.slots.data_ptr(), steps.slot_ptr.data_ptr(),
             steps.part_ptr.data_ptr(), steps.n_steps, b.data_ptr(),
-            int(b.dtype == torch.bfloat16), kdim, vec, gw, nc, out.data_ptr(),
-            stream,
+            int(b.dtype == torch.bfloat16), int(bf16acc), kdim, vec, gw, nc,
+            out.data_ptr(), stream,
         )
     if err:
         raise RuntimeError(f"awb_spmm_window launch failed: cudaError {err}")
     return out
 
 
-def spmm_window_plain(steps: DeviceSteps, b: torch.Tensor) -> torch.Tensor:
+def spmm_window_plain(steps: DeviceSteps, b: torch.Tensor, *,
+                      acc_dtype=torch.float32) -> torch.Tensor:
     """Plain version of the window kernel on the same slot records: gather
     each live slot's B row, scale it by the slot's value and ``index_add_``
     it into its partial, in f32. Partials are numbered by run in slot order,
     so a slot's partial is the count of run starts up to it, less one. Runs
     over chunks of slots so the ``[slots, kdim]`` intermediate stays
-    bounded."""
+    bounded. With ``acc_dtype=torch.bfloat16`` it takes the kernel's
+    rounding sequence instead (``_window_plain_bf16``)."""
+    if _check_acc(acc_dtype):
+        return _window_plain_bf16(steps, b)
     kdim = b.shape[1]
     out = torch.zeros((steps.n_parts, kdim), dtype=torch.float32, device=b.device)
     n_live = steps.slots.shape[0]
@@ -242,19 +268,55 @@ def spmm_window_plain(steps: DeviceSteps, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _positions(index: torch.Tensor, first: torch.Tensor) -> list:
+    """Indices grouped by position ``index - first`` within their run, as
+    ``[(position's indices)]`` in ascending position; no run appears twice
+    in a group, so a group's updates touch distinct rows."""
+    pos = index - first
+    order = torch.argsort(pos, stable=True)
+    ends = torch.bincount(pos).cumsum(0).tolist() if pos.numel() else []
+    return [order[lo:hi] for lo, hi in zip([0] + ends[:-1], ends)]
+
+
+def _window_plain_bf16(steps: DeviceSteps, b: torch.Tensor) -> torch.Tensor:
+    """The bf16-accumulate window in plain PyTorch, in the kernel's rounding
+    sequence: each run's slots are added in slot order, one position of
+    every run at a time, as ``sum = bf16(sum + bf16(bf16(B) * bf16(val)))``.
+    Returns the f32 partials holding bf16 values."""
+    kdim = b.shape[1]
+    head, bits = steps.slots.unbind(dim=1)
+    start = head < 0
+    part = torch.cumsum(start, dim=0) - 1
+    idx = torch.arange(head.numel(), device=b.device)
+    first = torch.cummax(torch.where(start, idx, 0), dim=0).values
+    rows = (head & 0x7FFFFFFF).long()
+    val = bits.view(torch.float32).to(torch.bfloat16)
+    out = torch.zeros((steps.n_parts, kdim), dtype=torch.bfloat16, device=b.device)
+    chunk = max(1, GATHER_ELEMS // max(1, kdim))
+    for group in _positions(idx, first):
+        for lo in range(0, group.numel(), chunk):
+            s = group[lo:lo + chunk]
+            p = part[s]
+            out[p] = out[p] + b[rows[s]].to(torch.bfloat16) * val[s][:, None]
+    return out.float()
+
+
 # ---------------------------------------------------------------------------
 # The epilogue kernel
 # ---------------------------------------------------------------------------
 
 
 def spmm_epilogue(steps: DeviceSteps, part: torch.Tensor, dtype,
-                  row_unperm: torch.Tensor | None = None) -> torch.Tensor:
+                  row_unperm: torch.Tensor | None = None, *,
+                  acc_dtype=torch.float32) -> torch.Tensor:
     """Matrix rows ``[m, kdim]`` in ``dtype`` from the partial output: row
     ``i`` sums, in ascending order, the partials of row ``row_unperm[i]``
-    (or ``i``). The kernel reads 16-byte vectors of ``part`` when kdim is a
-    multiple of 4 and ``part`` is 16-byte aligned, else single floats."""
+    (or ``i``), in ``acc_dtype`` (bf16: rounded after every add). The
+    kernel reads 16-byte vectors of ``part`` when kdim is a multiple of 4
+    and ``part`` is 16-byte aligned, else single floats."""
+    bf16acc = _check_acc(acc_dtype)
     if part.device.type == "cpu":
-        return spmm_epilogue_plain(steps, part, dtype, row_unperm)
+        return spmm_epilogue_plain(steps, part, dtype, row_unperm, acc_dtype=acc_dtype)
     _check_cuda(steps, part, "the partial output")
     m = steps.shape[0]
     if part.dtype != torch.float32 or part.dim() != 2 or (
@@ -276,11 +338,11 @@ def spmm_epilogue(steps: DeviceSteps, part: torch.Tensor, dtype,
     out = torch.empty((m, kdim), dtype=dtype, device=part.device)
     with torch.cuda.device(part.device):
         stream = torch.cuda.current_stream().cuda_stream
-        LAUNCHES["spmm_epilogue"] += 1
+        LAUNCHES["spmm_epilogue_bf16acc" if bf16acc else "spmm_epilogue"] += 1
         err = _lib().awb_spmm_epilogue(
             part.data_ptr(), steps.epi_ptr.data_ptr(), steps.epi_part.data_ptr(),
             unperm_ptr, m, kdim, out.data_ptr(), int(dtype == torch.bfloat16),
-            stream,
+            int(bf16acc), stream,
         )
     if err:
         raise RuntimeError(f"awb_spmm_epilogue launch failed: cudaError {err}")
@@ -288,14 +350,26 @@ def spmm_epilogue(steps: DeviceSteps, part: torch.Tensor, dtype,
 
 
 def spmm_epilogue_plain(steps: DeviceSteps, part: torch.Tensor, dtype,
-                        row_unperm: torch.Tensor | None = None) -> torch.Tensor:
+                        row_unperm: torch.Tensor | None = None, *,
+                        acc_dtype=torch.float32) -> torch.Tensor:
     """Plain version of the epilogue: ``index_add_`` of each row's partials
-    into it in f32, then the un-permutation and the cast."""
+    into it in f32, then the un-permutation and the cast. In bf16 it adds
+    each row's partials in ascending order, one position of every row at a
+    time, rounding after each add as the kernel does."""
     m = steps.shape[0]
     rows = torch.repeat_interleave(
         torch.arange(m, device=part.device), steps.epi_ptr.diff().long())
-    out = torch.zeros((m, part.shape[1]), dtype=torch.float32, device=part.device)
-    out.index_add_(0, rows, part[steps.epi_part.long()])
+    if _check_acc(acc_dtype):
+        out = torch.zeros((m, part.shape[1]), dtype=torch.bfloat16,
+                          device=part.device)
+        q = torch.arange(rows.numel(), device=part.device)
+        for group in _positions(q, steps.epi_ptr[:-1].long()[rows]):
+            r = rows[group]
+            out[r] = out[r] + part[steps.epi_part[group].long()].to(torch.bfloat16)
+    else:
+        out = torch.zeros((m, part.shape[1]), dtype=torch.float32,
+                          device=part.device)
+        out.index_add_(0, rows, part[steps.epi_part.long()])
     if row_unperm is not None:
         out = out[row_unperm.long()]
     return out.to(dtype)
@@ -315,18 +389,21 @@ def _steps_for(sched_or_steps, device) -> DeviceSteps:
 
 
 def spmm_balanced(sched_or_steps, b: torch.Tensor, *, ktile: int = 128,
-                  row_unperm: torch.Tensor | None = None) -> torch.Tensor:
+                  row_unperm: torch.Tensor | None = None,
+                  acc_dtype=torch.float32) -> torch.Tensor:
     """C = A @ B through the converged schedule (a ``Schedule``, uploaded
     once per device and memoized, or its ``DeviceSteps``), in ``b``'s
-    dtype with f32 accumulation."""
+    dtype, accumulated in ``acc_dtype`` (f32, or bf16 rounded after every
+    multiply and add)."""
     steps = _steps_for(sched_or_steps, b.device)
-    return spmm_epilogue(steps, spmm_window(steps, b, ktile=ktile), b.dtype,
-                         row_unperm)
+    part = spmm_window(steps, b, ktile=ktile, acc_dtype=acc_dtype)
+    return spmm_epilogue(steps, part, b.dtype, row_unperm, acc_dtype=acc_dtype)
 
 
 def spmm_balanced_plain(sched_or_steps, b: torch.Tensor, *,
-                        row_unperm: torch.Tensor | None = None) -> torch.Tensor:
+                        row_unperm: torch.Tensor | None = None,
+                        acc_dtype=torch.float32) -> torch.Tensor:
     """Plain PyTorch version of ``spmm_balanced`` on any device."""
     steps = _steps_for(sched_or_steps, b.device)
-    return spmm_epilogue_plain(steps, spmm_window_plain(steps, b), b.dtype,
-                               row_unperm)
+    part = spmm_window_plain(steps, b, acc_dtype=acc_dtype)
+    return spmm_epilogue_plain(steps, part, b.dtype, row_unperm, acc_dtype=acc_dtype)

@@ -1,0 +1,1111 @@
+"""Deadline-aware GCN serving engine on the tuning store — part 1: one device.
+
+The port of ``repro.serving.gcn_engine``. A serving system holds *many*
+graphs — one converged configuration each — and rotates them through
+bounded device memory. ``GCNServingEngine`` composes the tuning subsystem
+into that shape on one device (the card by default, ``device="cpu"`` for
+the host):
+
+* **Warm starts.** ``add_graph`` keys the ``TuningStore`` by graph
+  fingerprint, probe width, device kind and mesh; a hit deserializes the
+  ``TunedConfig``, the prebuilt schedule arrays and the row permutation, so
+  a process restart performs **zero measured sweeps and zero schedule
+  rebuilds** — deserialize, upload, serve. A miss runs the measured sweep
+  once (``tuning.runner.autotune``, timed on the device) and persists the
+  winner; the sweep's losing candidates are released from the registry so
+  their uploads do not pin device memory. A corrupted entry is dropped and
+  re-tuned, never crashed on.
+* **Deadline-aware batching.** ``submit(graph_id, x, deadline_s=...)``
+  queues a request; queues auto-flush when a graph reaches ``max_batch``,
+  and ``poll()`` serves every queue whose earliest deadline is due
+  (earliest-deadline-first across graphs). All batches are dispatched
+  before any result is awaited: a batch's forward is
+  ``ScheduleExecutor.forward_batch`` (the port of the reference's
+  ``jax.jit(jax.vmap(ex._forward_impl))``) on the hand-written SpMM kernels,
+  whose launches return at once; a CUDA event recorded after each batch is
+  what ``_await_batch`` waits on, and latency is stamped there.
+* **Bounded residency.** Each resident graph's footprint — its executor's
+  schedule arrays (``device_bytes``) plus its uploaded weights — counts
+  against ``device_budget_bytes``. Admission beyond the budget evicts the
+  least-recently-served graphs; the host schedule, config and weights are
+  kept, so re-admission is a re-upload — no rebuild, no sweep.
+* **Overload and faults.** ``submit`` returns a typed ``SubmitTicket``;
+  ``max_queue_depth`` rejects overflow and ``shed_unmeetable`` sheds
+  requests whose deadline the predicted wait already rules out. Transient
+  dispatch failures retry with bounded exponential backoff; a request that
+  still cannot be served surfaces as a typed failure with every counter and
+  outstanding-work meter consistent. ``core.executor.FAULTS`` is the test
+  seam that injects failures.
+
+Every scheduling choice — placement, shedding, queue ordering and dueness —
+goes through the ``serving.policy.SchedulingPolicy`` seam.
+
+Not ported yet, and raising ``NotImplementedError`` (ROADMAP queue 1, item
+5): more than one device, and with it the sharded route, replicas and
+migration; ``update_graph`` with its persist worker; sibling-replica retry
+and the recovery ladder.
+
+The engine bypasses ``tuning.registry``'s unbounded fingerprint caches for
+its executors — eviction must actually free device memory, so the engine's
+executor references are the only ones.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from collections import OrderedDict, deque
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import csc as fmt
+from repro_torch.core.executor import FAULTS, ScheduleExecutor, release_device_steps
+from repro_torch.core.schedule import Schedule
+from repro_torch.device import resolve_device
+from repro_torch.serving.errors import (  # noqa: F401 — historical import path
+    FlushError,
+    RequestFailure,
+    ServingError,
+    UnknownGraphError,
+)
+from repro_torch.serving.placement import MeshPlacer, Placement
+from repro_torch.serving.policy import (
+    GraphState,
+    HeuristicPolicy,
+    PolicyState,
+    SchedulingPolicy,
+    absorb_load,
+)
+from repro_torch.serving.types import ACCEPTED, REJECTED, SHED, SubmitTicket
+from repro_torch.tuning import registry, runner
+from repro_torch.tuning.space import TunedConfig
+from repro_torch.tuning.store import TuningStore, device_count
+
+#: pre-tune footprint estimate: ~16 bytes per non-zero covers the gather
+#: path's 12 bytes/slot plus schedule padding slack
+_BYTES_PER_NNZ_EST = 16
+
+#: what the single-device engine leaves to part 2 of the port
+_PART_2 = "is not ported yet (ROADMAP queue 1, item 5)"
+
+#: bounded reservoir of recent per-request latencies (seconds) backing
+#: the p50/p95/p99 percentiles in ``stats()``.
+_LAT_RESERVOIR = 65536
+
+
+def _block_until_ready(out, event=None):
+    """Wait until the work that produces ``out`` has finished: ``event``, a
+    CUDA event recorded right after the batch's launches, or else ``out``'s
+    stream. The completion path's await — a test seam (monkeypatched to
+    simulate a computation that fails asynchronously)."""
+    if event is not None:
+        event.synchronize()
+    elif isinstance(out, torch.Tensor) and out.is_cuda:
+        torch.cuda.current_stream(out.device).synchronize()
+    return out
+
+
+#: test seam: the sleep used by dispatch-retry backoff (monkeypatched so
+#: backoff tests record delays instead of waiting them out).
+_sleep = time.sleep
+
+
+@dataclasses.dataclass
+class _PartFailure:
+    """One sub-batch that stayed failed: the request-order slice it
+    covered and the final exception."""
+    offset: int
+    n: int
+    exc: Exception
+
+
+@dataclasses.dataclass
+class AdmitReport:
+    """What ``add_graph`` did for one graph."""
+    graph_id: str
+    warm_start: bool  # True: store hit — no sweep, no rebuild
+    tune_seconds: float  # 0.0 on the warm path
+    device_bytes: int  # resident footprint (schedule + weights)
+    config: TunedConfig
+    placement: Placement  # which device the graph serves from
+
+
+@dataclasses.dataclass
+class _Request:
+    """One queued inference request."""
+    rid: int
+    x: torch.Tensor
+    submit_t: float  # monotonic seconds
+    deadline: Optional[float]  # absolute monotonic; None = no SLA
+
+
+@dataclasses.dataclass
+class _Unit:
+    """The device-resident serving copy of a graph: its executor and its
+    uploaded weights."""
+    device_index: int
+    executor: ScheduleExecutor
+    params: dict
+    bytes: int
+
+
+@dataclasses.dataclass
+class _Part:
+    """One dispatched batch: the logits ``out`` being computed and the
+    CUDA ``event`` recorded after its launches (None on the host). ``est``
+    is the outstanding-work charge held against ``device_index`` until
+    completion; ``offset`` maps a failure back to the request-order slice
+    it covered."""
+    device_index: int
+    n: int
+    est: float
+    out: object = None
+    event: object = None
+    offset: int = 0
+
+
+@dataclasses.dataclass
+class _Resident:
+    graph_id: str
+    fingerprint: str  # guarded-by: _swap_lock
+    config: TunedConfig
+    sched: Schedule  # host copy — survives eviction
+    params_host: dict  # host copy — survives eviction
+    params: Optional[dict] = None  # device weights; guarded-by: _swap_lock
+    #: the graph's ScheduleExecutor (None while evicted)
+    executor: Optional[ScheduleExecutor] = None  # guarded-by: _swap_lock
+    bytes: int = 0  # schedule + weight device bytes; guarded-by: _swap_lock
+    #: host COO of the graph as served (PAD-stripped): its size feeds the
+    #: policy's graph features
+    coo: Optional[fmt.COO] = None
+    kdim: int = 0  # tuning probe width
+    #: the row permutation ``sched`` was built under (``perm[new] = old``)
+    #: and its inverse; both None for the identity order. Executors built
+    #: from ``sched`` un-permute with ``inv`` so outputs stay in original
+    #: row order.
+    perm: Optional[np.ndarray] = None
+    inv: Optional[np.ndarray] = None
+
+
+def _earliest_deadline(queue: List[_Request]) -> float:
+    """Earliest deadline in a queue (+inf when no request carries one) —
+    the EDF sort key across graphs."""
+    dls = [r.deadline for r in queue if r.deadline is not None]
+    return min(dls) if dls else float("inf")
+
+
+def _host_params(params: dict) -> dict:
+    """Host numpy copies of a weight dict (numpy arrays or tensors)."""
+    return {name: np.array(fmt.to_numpy(w)) for name, w in params.items()}
+
+
+class GCNServingEngine:
+    """Serve batched GCN inference over many resident graphs on one device.
+
+    ``device`` (default: the card) is where every graph serves; pass
+    ``device="cpu"`` for the host. ``devices`` keeps the reference's mesh
+    argument: None or 1 (or a one-device list) is this engine; more devices
+    raise ``NotImplementedError`` until part 2 of the port.
+
+    ``device_budget_bytes`` bounds the device's resident schedule+weight
+    bytes; the graph being served is always kept resident, even if it
+    alone exceeds the budget (a budget smaller than one graph cannot be
+    honoured — it degrades to one-graph-at-a-time rotation).
+
+    ``policy`` plugs a ``serving.policy.SchedulingPolicy`` into every
+    scheduling choice point — admission placement, submit-time and
+    dispatch-time shedding, and queue ordering/dueness. The default
+    ``HeuristicPolicy()`` reproduces the reference engine's behaviour
+    decision for decision; ``LearnedServiceTimePolicy()`` swaps the EWMA
+    service-time model for an online-fitted predictor.
+
+    Admission control: ``max_queue_depth`` bounds every per-graph queue
+    (``submit`` returns a REJECTED ``SubmitTicket`` at the bound; None =
+    unbounded). ``shed_unmeetable=True`` turns on deadline-aware shedding:
+    a request whose deadline the EDF load map's predicted wait already
+    rules out is dropped — at submit time and again at dispatch time.
+    Transient dispatch failures retry up to ``max_dispatch_retries`` times
+    with exponential backoff starting at ``retry_backoff_s`` seconds
+    (validation errors never retry). The replication, rebalance and repair
+    knobs are accepted and validated as the reference does; they act in
+    part 2 only.
+    """
+
+    def __init__(
+        self,
+        *,
+        store: Optional[TuningStore] = None,
+        store_root=None,
+        policy: Optional[SchedulingPolicy] = None,
+        device_budget_bytes: int = 64 << 20,
+        devices=None,
+        device=None,
+        max_batch: int = 32,
+        rebalance_after: int = 4,
+        max_replicas: Optional[int] = None,
+        replicate_after_s: float = 0.25,
+        replica_shrink_after: int = 3,
+        max_queue_depth: Optional[int] = None,
+        shed_unmeetable: bool = False,
+        max_dispatch_retries: int = 2,
+        retry_backoff_s: float = 0.02,
+        repair_drift_threshold: float = 0.25,
+        autotune_iters: int = 3,
+        autotune_warmup: int = 1,
+        autotune_kwargs: Optional[dict] = None,
+    ):
+        self.store = store if store is not None else TuningStore(store_root)
+        #: the scheduling seam: every placement, shedding, and
+        #: dispatch-ordering decision goes through this object (see
+        #: ``serving.policy``); default is the extracted heuristics
+        self.policy: SchedulingPolicy = (
+            policy if policy is not None else HeuristicPolicy()
+        )
+        self.device_budget_bytes = int(device_budget_bytes)
+        self.max_batch = int(max_batch)
+        if self.max_batch < 1:
+            raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        self.devices = self._resolve_devices(devices, device)
+        self.n_devices = len(self.devices)
+        self.placer = MeshPlacer(
+            self.n_devices, self.device_budget_bytes, rebalance_after=rebalance_after
+        )
+        if max_replicas is not None and max_replicas < 1:
+            raise ValueError(f"max_replicas must be >= 1, got {max_replicas}")
+        self.max_replicas = (
+            self.n_devices
+            if max_replicas is None
+            else min(int(max_replicas), self.n_devices)
+        )
+        self.replicate_after_s = float(replicate_after_s)
+        self.replica_shrink_after = int(replica_shrink_after)
+        if max_queue_depth is not None and max_queue_depth < 1:
+            raise ValueError(
+                f"max_queue_depth must be >= 1 or None, got {max_queue_depth}"
+            )
+        self.max_queue_depth = None if max_queue_depth is None else int(max_queue_depth)
+        self.shed_unmeetable = bool(shed_unmeetable)
+        if max_dispatch_retries < 0:
+            raise ValueError(
+                f"max_dispatch_retries must be >= 0, got {max_dispatch_retries}"
+            )
+        self.max_dispatch_retries = int(max_dispatch_retries)
+        self.retry_backoff_s = float(retry_backoff_s)
+        if repair_drift_threshold <= 0:
+            raise ValueError(
+                f"repair_drift_threshold must be > 0, got "
+                f"{repair_drift_threshold}"
+            )
+        self.repair_drift_threshold = float(repair_drift_threshold)
+        #: serializes publication of a graph's device state (executor,
+        #: weights, bytes) against the snapshots dispatches take of it
+        self._swap_lock = threading.Lock()
+        self._autotune_kwargs = dict(autotune_kwargs or {})
+        reserved = {"max_devices", "store", "device"} & set(self._autotune_kwargs)
+        if reserved:
+            raise ValueError(
+                f"autotune_kwargs may not override {sorted(reserved)}: the "
+                "engine pins the mesh route, its device and its own store"
+            )
+        self._autotune_kwargs.setdefault("iters", autotune_iters)
+        self._autotune_kwargs.setdefault("warmup", autotune_warmup)
+        self._graphs: "OrderedDict[str, _Resident]" = OrderedDict()
+        self._pending: Dict[str, List[_Request]] = {}
+        #: batches completed by a threshold-triggered auto-flush, awaiting
+        #: pickup by the next poll()/flush()
+        self._ready: Dict[str, List[torch.Tensor]] = {}
+        self._svc_ewma: Dict[str, float] = {}  # per-graph batch seconds
+        #: per-graph per-*request* EWMA seconds — the saturation signal
+        self._svc_req_ewma: Dict[str, float] = {}
+        #: device index → estimated seconds of dispatched-but-incomplete work
+        self._dev_outstanding: Dict[int, float] = {}
+        self._next_rid = 0
+        self.device_bytes_in_use = 0
+        self._lat_n, self._lat_total, self._lat_max = 0, 0.0, 0.0
+        #: bounded reservoir of recent request latencies (seconds) for
+        #: the percentile figures in stats()
+        self._lat_samples: "deque[float]" = deque(maxlen=_LAT_RESERVOIR)
+        # the overload accounting identity over the queue path:
+        #   submitted == queue_served + shed + rejected + dropped + pending
+        # (`requests` also counts direct serve_batch work, so the queue
+        # path gets its own served counter; `dropped` settles requests a
+        # remove_graph failed while still queued). Every counter of the
+        # reference is kept; those of part 2 stay at zero.
+        self.counters = {
+            "store_hits": 0,
+            "store_misses": 0,
+            "evictions": 0,
+            "readmissions": 0,
+            "rebalances": 0,
+            "batches": 0,
+            "requests": 0,
+            "deadline_met": 0,
+            "deadline_misses": 0,
+            "replicas_added": 0,
+            "replicas_dropped": 0,
+            "submitted": 0,
+            "queue_served": 0,
+            "shed": 0,
+            "rejected": 0,
+            "dropped": 0,
+            "request_failures": 0,
+            "dispatch_retries": 0,
+            "chunk_retries": 0,
+            "graph_updates": 0,
+            "update_retunes": 0,
+        }
+
+    @staticmethod
+    def _resolve_devices(devices, device) -> List[torch.device]:
+        """The engine's one device from the reference's ``devices`` mesh
+        argument and the port's ``device``."""
+        if devices is None or isinstance(devices, int):
+            dev = resolve_device(device)
+            if devices is not None:
+                avail = max(1, device_count(dev))
+                if not 1 <= devices <= avail:
+                    raise ValueError(
+                        f"devices={devices} but this host exposes "
+                        f"{avail} device(s)"
+                    )
+                if devices > 1:
+                    raise NotImplementedError(f"a mesh of {devices} devices {_PART_2}")
+            return [dev]
+        devices = list(devices)
+        if device is not None:
+            raise ValueError("pass devices or device, not both")
+        if len(devices) != 1:
+            raise NotImplementedError(f"a mesh of {len(devices)} devices {_PART_2}")
+        return [resolve_device(devices[0])]
+
+    # ---- policy state snapshot ---------------------------------------------
+
+    def _graph_state(self, gid: str, rec: "Optional[_Resident]" = None) -> GraphState:
+        """One graph's immutable policy-visible state (see
+        ``serving.policy.GraphState``). ``rec`` may be None for a queue
+        whose graph record is absent; its graph features degrade to zeros."""
+        if rec is None:
+            rec = self._graphs.get(gid)
+        p = self.placer.placement_of(gid)
+        q = self._pending.get(gid) or []
+        has_coo = rec is not None and rec.coo is not None
+        with self._swap_lock:
+            rec_bytes = 0 if rec is None else int(rec.bytes)
+        return GraphState(
+            graph_id=gid,
+            nnz=int(rec.coo.row.shape[0]) if has_coo else 0,
+            n_rows=int(rec.coo.shape[0]) if has_coo else 0,
+            bytes=rec_bytes,
+            resident=self.placer.is_resident(gid),
+            kind=None if p is None else p.kind,
+            device_index=None if p is None else p.device_index,
+            device_indices=() if p is None else tuple(p.device_indices),
+            queue_depth=len(q),
+            earliest_deadline=_earliest_deadline(q),
+            svc_ewma=self._svc_ewma.get(gid, 0.0),
+            svc_req_ewma=self._svc_req_ewma.get(gid, 0.0),
+            calm_polls=0,  # replica hysteresis: part 2
+        )
+
+    def _policy_state(self, now: Optional[float] = None) -> PolicyState:
+        """Snapshot everything a scheduling decision may read. Rebuilt
+        before every policy consultation — decisions that mutate engine
+        state never leak into a stale snapshot."""
+        if now is None:
+            now = time.monotonic()
+        return PolicyState(
+            now=now,
+            n_devices=self.n_devices,
+            budget_bytes=self.placer.budget,
+            used_bytes=tuple(self.placer.used),
+            outstanding_s=tuple(
+                self._dev_outstanding.get(d, 0.0) for d in range(self.n_devices)
+            ),
+            max_replicas=self.max_replicas,
+            replicate_after_s=self.replicate_after_s,
+            replica_shrink_after=self.replica_shrink_after,
+            max_batch=self.max_batch,
+            # every admitted graph, plus any queue without a graph record
+            graphs={
+                g: self._graph_state(g)
+                for g in [
+                    *self._graphs,
+                    *(q for q in self._pending if q not in self._graphs),
+                ]
+            },
+        )
+
+    # ---- admission ---------------------------------------------------------
+
+    def _estimate_bytes(self, a: fmt.COO, params: dict) -> int:
+        """Pre-tune footprint estimate (schedule + weights), as the
+        reference computes it."""
+        nnz = int(a.row.shape[0])
+        weights = sum(int(w.nbytes) for w in _host_params(params).values())
+        return nnz * _BYTES_PER_NNZ_EST + weights
+
+    def add_graph(
+        self, graph_id: str, a: fmt.COO, params: dict, *, kdim: Optional[int] = None
+    ) -> AdmitReport:
+        """Register a graph + trained weights and make it servable.
+
+        The single-device route of the reference: the store key and the
+        sweep are pinned to one device. A store hit adopts the entry's
+        permutation and schedule (no sweep, no rebuild); a miss runs the
+        measured sweep on the engine's device, persists the winner and
+        releases the graph from the registry's caches. Then the graph is
+        placed and uploaded. ``kdim`` is the tuning probe width; it
+        defaults to the first layer's output width."""
+        if graph_id in self._graphs:
+            raise ValueError(f"graph {graph_id!r} already registered")
+        if kdim is None:
+            kdim = int(params["w0"].shape[1])
+        dev = self.devices[0]
+        fp = registry.graph_fingerprint(a)
+        est = self._estimate_bytes(a, params)
+        tune_kw = self._autotune_kwargs
+        key = runner.store_key(
+            self.store, fp, kdim, max_devices=1, device=dev, **tune_kw
+        )
+        t0 = time.perf_counter()
+        entry = self.store.load(key)
+        warm = entry is not None
+        if warm:
+            self._count("store_hits")
+            cfg, sched, perm = entry
+            self._check_route(graph_id, cfg, "stored")
+            # the entry's permutation is adopted verbatim — it is the one
+            # the persisted schedule was built under
+            registry.adopt_reorder(fp, cfg.reorder, perm)
+            perm, inv = registry.get_reorder(a, cfg.reorder, fingerprint=fp)
+            tune_s = 0.0
+        else:
+            self._count("store_misses")
+            cfg = runner.autotune(
+                a,
+                (a.shape[1], kdim),
+                max_devices=1,
+                store=self.store,
+                device=dev,
+                **tune_kw,
+            )
+            self._check_route(graph_id, cfg, "tuned")
+            sched = registry.get_schedule(a, **cfg.as_schedule_kwargs(), fingerprint=fp)
+            perm, inv = registry.get_reorder(a, cfg.reorder, fingerprint=fp)
+            # release the graph from the registry's unbounded caches: the
+            # sweep's losing candidate executors must not pin device
+            # memory, and this engine's budget becomes the only thing
+            # keeping anything resident (perm/inv above are plain refs)
+            registry.release_graph(fp)
+            tune_s = time.perf_counter() - t0
+        row = fmt.to_numpy(a.row)
+        keep = row != fmt.PAD_IDX
+        col, val = fmt.to_numpy(a.col), fmt.to_numpy(a.val)
+        if not keep.all():
+            row, col, val = row[keep], col[keep], val[keep]
+        rec = _Resident(
+            graph_id=graph_id,
+            fingerprint=fp,
+            config=cfg,
+            sched=sched,
+            params_host=_host_params(params),
+            coo=fmt.COO(row.astype(np.int32), col.astype(np.int32), val, a.shape),
+            kdim=int(kdim),
+            perm=perm,
+            inv=inv,
+        )
+        self._graphs[graph_id] = rec
+        decision = self.policy.place(self._policy_state(), graph_id, est)
+        placement = self.placer.place(graph_id, est, decision=decision)
+        self._admit(rec)
+        with self._swap_lock:
+            nbytes = rec.bytes
+        return AdmitReport(
+            graph_id=graph_id,
+            warm_start=warm,
+            tune_seconds=tune_s,
+            device_bytes=nbytes,
+            config=cfg,
+            placement=placement,
+        )
+
+    def _check_route(self, graph_id: str, cfg: TunedConfig, origin: str) -> None:
+        if cfg.n_devices is not None:
+            raise ValueError(
+                f"graph {graph_id!r} takes the single-device route, but "
+                f"the {origin} config requests n_devices={cfg.n_devices} — "
+                "remove sharded candidates from autotune_kwargs['sweep']"
+            )
+
+    def remove_graph(self, graph_id: str) -> None:
+        """Drop a graph entirely: executor, placement, queues.
+
+        Pending queued requests cannot be served once the graph is gone;
+        silently discarding them would break the accounting identity
+        (``submitted == queue_served + shed + rejected + dropped +
+        pending``), so they are **failed**: settled exactly once into the
+        ``dropped`` counter and surfaced as one typed ``RequestFailure``
+        raised *after* the removal fully completed."""
+        if graph_id not in self._graphs:
+            raise UnknownGraphError(graph_id, "remove_graph")
+        rec = self._graphs.pop(graph_id)
+        dropped = self._pending.pop(graph_id, None) or []
+        self._ready.pop(graph_id, None)
+        self._svc_ewma.pop(graph_id, None)
+        self._svc_req_ewma.pop(graph_id, None)
+        with self._swap_lock:
+            freed = rec.bytes if rec.executor is not None else 0
+            rec.executor = None
+            rec.params = None
+        self.device_bytes_in_use -= freed
+        self.placer.forget(graph_id)
+        release_device_steps(rec.sched)
+        if dropped:
+            self._count("dropped", len(dropped))
+            raise RequestFailure(
+                graph_id,
+                RuntimeError("graph removed while requests were queued"),
+                len(dropped),
+            )
+
+    def update_graph(self, graph_id: str, delta) -> None:
+        """Streaming edge updates with incremental schedule repair."""
+        raise NotImplementedError(f"update_graph {_PART_2}")
+
+    # ---- residency / eviction ----------------------------------------------
+
+    def _build_unit(self, rec: _Resident, device_index: int) -> _Unit:
+        """The serving copy of ``rec`` on one device — built from the
+        already-converged config and the host schedule, so it costs one
+        upload and zero sweeps, zero rebuilds."""
+        cfg = rec.config
+        dev = self.devices[device_index]
+        ex = ScheduleExecutor(
+            rec.sched,
+            ktile=cfg.ktile,
+            routing=cfg.routing,
+            bf16_accumulate=cfg.bf16_accumulate,
+            device=dev,
+            row_unperm=rec.inv,
+        )
+        params = {
+            name: torch.from_numpy(w).to(dev) for name, w in rec.params_host.items()
+        }
+        nbytes = ex.device_bytes + sum(int(w.nbytes) for w in params.values())
+        return _Unit(device_index, ex, params, nbytes)
+
+    def _admit(self, rec: _Resident) -> None:
+        """Ensure ``rec`` is device-resident on its placement (LRU-touch +
+        budget sweep)."""
+        with self._swap_lock:
+            evicted = rec.executor is None
+            first = rec.bytes == 0
+        if evicted:
+            p = self.placer.placement_of(rec.graph_id)
+            # the upload runs outside the swap lock (it is O(bytes) slow);
+            # the unit fields then publish atomically under it
+            unit = self._build_unit(rec, p.device_index)
+            with self._swap_lock:
+                rec.executor, rec.params, rec.bytes = (
+                    unit.executor, unit.params, unit.bytes)
+            self.placer.account(rec.graph_id, unit.bytes)
+            self.device_bytes_in_use += unit.bytes
+            if not first:
+                self._count("readmissions")
+        self._graphs.move_to_end(rec.graph_id)
+        self._evict_over_budget(keep=rec.graph_id)
+
+    def _evict(self, rec: _Resident) -> None:
+        """Drop a graph's executor and device weights (their tensors are
+        freed with the last reference) and the schedule's memoized device
+        step arrays; the host schedule, config and weights stay for
+        re-upload."""
+        self.placer.note_eviction(rec.graph_id)
+        self._count("evictions")
+        self.placer.unaccount(rec.graph_id)
+        with self._swap_lock:
+            freed = rec.bytes
+            rec.executor = None
+            rec.params = None
+        release_device_steps(rec.sched)
+        self.device_bytes_in_use -= freed
+        # service EWMAs were measured under this residency; a re-admitted
+        # graph must re-measure instead of shedding requests off stale
+        # predictions
+        self._svc_ewma.pop(rec.graph_id, None)
+        self._svc_req_ewma.pop(rec.graph_id, None)
+
+    def _evict_over_budget(self, keep: str) -> None:
+        """Budget sweep: an over-budget device sheds resident graphs,
+        least-recently-served first, until under budget (the kept graph is
+        never evicted). ``self._graphs`` is maintained in
+        least-recently-*served* order — every serve and (re)admission
+        ``move_to_end``s its graph — so scanning it front-to-back visits
+        true LRU order, not insertion order."""
+        for d in range(self.n_devices):
+            while self.placer.used[d] > self.placer.budget:
+                with self._swap_lock:
+                    victim = next(
+                        (
+                            r
+                            for r in self._graphs.values()
+                            if r.executor is not None
+                            and r.graph_id != keep
+                            and self.placer.resident_on(r.graph_id, d)
+                        ),
+                        None,
+                    )
+                if victim is None:
+                    break  # only `keep` holds this device; never evicted
+                self._evict(victim)
+
+    @property
+    def resident_graphs(self) -> List[str]:
+        with self._swap_lock:
+            return [g for g, r in self._graphs.items() if r.executor is not None]
+
+    @property
+    def graphs(self) -> List[str]:
+        return list(self._graphs)
+
+    # ---- dispatch ----------------------------------------------------------
+
+    def _unit(self, rec: _Resident) -> _Unit:
+        """The graph's resident serving copy, snapshotted under the swap
+        lock."""
+        with self._swap_lock:
+            p = self.placer.placement_of(rec.graph_id)
+            return _Unit(p.device_index, rec.executor, rec.params, rec.bytes)
+
+    def _dispatch_batch(self, graph_id: str, xs) -> List[_Part]:
+        """Validate + stack ``xs``, ensure residency (LRU touch, re-upload
+        if evicted) and launch the batch's forward — **counting nothing**:
+        served-work counters and service EWMAs move only when the
+        completion path proves the computation finished. The launches
+        return at once on the card; the event recorded after them is what
+        completion awaits, so batches of several graphs queue back to back."""
+        rec = self._graphs.get(graph_id)
+        if rec is None:
+            raise UnknownGraphError(graph_id, "serve")
+        FAULTS.check("dispatch", graph=graph_id)
+        if isinstance(xs, torch.Tensor) and xs.dim() == 3:
+            xb = xs
+        else:
+            xb = torch.stack([torch.as_tensor(x) for x in xs])
+        n = rec.sched.shape[1]
+        if xb.shape[1] != n:
+            raise ValueError(
+                f"features have {xb.shape[1]} rows; graph {graph_id!r} has {n} nodes"
+            )
+        self._admit(rec)  # LRU touch + re-upload if evicted
+        b = int(xb.shape[0])
+        unit = self._unit(rec)
+        per_req = self._svc_req_ewma.get(graph_id, 0.0)
+        out = unit.executor.forward_batch(unit.params, xb)
+        event = None
+        if out.is_cuda:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(out.device))
+        part = _Part(unit.device_index, b, per_req * b, out=out, event=event)
+        self._charge(part, +1)
+        return [part]
+
+    def _dispatch_with_retry(self, graph_id: str, xs) -> List[_Part]:
+        """Dispatch with bounded retry + exponential backoff for
+        *transient* failures (device hiccups, injected faults). A failed
+        attempt charges nothing, so retrying is free of bookkeeping.
+        Validation errors — unknown graph, wrong shape — are permanent
+        and re-raise immediately; after ``max_dispatch_retries`` retries
+        the last transient error propagates to the caller."""
+        delay = self.retry_backoff_s
+        for attempt in range(self.max_dispatch_retries + 1):
+            try:
+                return self._dispatch_batch(graph_id, xs)
+            except (KeyError, ValueError, TypeError):
+                raise
+            except Exception:
+                if attempt >= self.max_dispatch_retries:
+                    raise
+                self._count("dispatch_retries")
+                _sleep(delay)
+                delay *= 2
+
+    def _charge(self, part: _Part, sign: int) -> None:
+        d = part.device_index
+        if d is not None and part.est:
+            self._dev_outstanding[d] = max(
+                0.0, self._dev_outstanding.get(d, 0.0) + sign * part.est
+            )
+
+    def _await_batch(
+        self, graph_id: str, parts: List[_Part]
+    ) -> Tuple[object, List[_PartFailure]]:
+        """Block until every part of one dispatched batch settles, then
+        merge the completed logits in request order.
+
+        Returns ``(out, failures)``: ``out`` is the merged logits of the
+        parts that completed (None when none did) and ``failures`` names
+        the request-order slices that failed. Every part settles its
+        outstanding-work charge exactly once, success or failure; the
+        served-work counters are untouched here."""
+        outs: List[Tuple[int, object]] = []
+        failures: List[_PartFailure] = []
+        settled = set()
+        try:
+            for part in parts:
+                try:
+                    _block_until_ready(part.out, part.event)
+                except Exception as e:
+                    self._charge(part, -1)
+                    settled.add(id(part))
+                    failures.append(_PartFailure(part.offset, part.n, e))
+                    continue
+                self._charge(part, -1)
+                settled.add(id(part))
+                outs.append((part.offset, part.out))
+        finally:
+            # an unexpected escape (e.g. KeyboardInterrupt) must still
+            # settle every remaining charge — never a leaked meter
+            for part in parts:
+                if id(part) not in settled:
+                    self._charge(part, -1)
+        if not outs:
+            return None, failures
+        outs.sort(key=lambda t: t[0])
+        if len(outs) == 1:
+            return outs[0][1], failures
+        return torch.cat([o for _, o in outs], dim=0), failures
+
+    def _note_service(self, gid: str, svc_s: float, n_requests: int) -> None:
+        """Fold one completed batch into the per-batch and per-request
+        service-time EWMAs (the deadline scheduler's dispatch estimate),
+        then feed the completion to the policy — learned policies fit
+        their service-time model on exactly these observations."""
+        old = self._svc_ewma.get(gid)
+        self._svc_ewma[gid] = svc_s if old is None else 0.5 * old + 0.5 * svc_s
+        per = svc_s / max(1, n_requests)
+        old = self._svc_req_ewma.get(gid)
+        self._svc_req_ewma[gid] = per if old is None else 0.5 * old + 0.5 * per
+        rec = self._graphs.get(gid)
+        if rec is not None:
+            self.policy.observe_service(
+                gid, n_requests, svc_s, self._graph_state(gid, rec)
+            )
+
+    # ---- direct serving ----------------------------------------------------
+
+    def serve_batch(self, graph_id: str, xs) -> torch.Tensor:
+        """One forward over a batch of same-graph feature matrices.
+
+        ``xs`` is a sequence of ``[n, f]`` arrays (or a stacked
+        ``[B, n, f]`` tensor); returns stacked ``[B, n, classes]`` logits
+        on the engine's device. The deadline scheduler serves queues
+        through this same dispatch path, so auto-flushed batches are
+        bit-identical to direct calls. ``batches``/``requests`` count
+        **only after the computation completes**. Transient dispatch
+        failures retry with bounded backoff; a batch that still cannot
+        complete raises a typed ``RequestFailure``."""
+        t0 = time.monotonic()
+        parts = self._dispatch_with_retry(graph_id, xs)
+        out, part_failures = self._await_batch(graph_id, parts)
+        if part_failures:
+            n_failed = sum(f.n for f in part_failures)
+            self._count("request_failures", n_failed)
+            raise RequestFailure(graph_id, part_failures[-1].exc, n_failed, partial=out)
+        self._count("batches")
+        self._count("requests", sum(p.n for p in parts))
+        self._note_service(graph_id, time.monotonic() - t0, sum(p.n for p in parts))
+        return out
+
+    def infer(self, graph_id: str, x) -> torch.Tensor:
+        """Single-request forward (a batch of one)."""
+        return self.serve_batch(graph_id, [x])[0]
+
+    # ---- deadline-aware queueing -------------------------------------------
+
+    def submit(
+        self,
+        graph_id: str,
+        x,
+        *,
+        deadline_s: Optional[float] = None,
+        now: Optional[float] = None,
+    ) -> SubmitTicket:
+        """Queue one request; returns a typed ``SubmitTicket``.
+
+        ``deadline_s`` is the SLA in seconds from now (None = no deadline;
+        the request serves on the next ``flush()`` or when its graph's
+        queue reaches ``max_batch`` — which auto-flushes that graph
+        immediately). Shape is validated here so one malformed request can
+        never poison a later flush — malformed submissions *raise*
+        (``UnknownGraphError``/``ValueError``: caller bugs, not load).
+
+        Admission control runs before anything is queued: a queue at
+        ``max_queue_depth`` returns a REJECTED ticket, and with
+        ``shed_unmeetable`` on, a deadline the predicted wait already
+        rules out returns a SHED ticket. ``now`` injects the arrival
+        clock. The queue keeps ``x`` itself (``torch.as_tensor``, no
+        copy), so the caller leaves it unchanged until it is served."""
+        rec = self._graphs.get(graph_id)
+        if rec is None:
+            raise UnknownGraphError(graph_id, "submit")
+        x = torch.as_tensor(x)
+        n = rec.sched.shape[1]
+        if x.dim() != 2 or x.shape[0] != n:
+            raise ValueError(
+                f"request for graph {graph_id!r} must be [n={n}, features]; "
+                f"got shape {tuple(x.shape)}"
+            )
+        if now is None:
+            now = time.monotonic()
+        self._count("submitted")
+        depth = len(self._pending.get(graph_id) or ())
+        if self.max_queue_depth is not None and depth >= self.max_queue_depth:
+            self._count("rejected")
+            return SubmitTicket(
+                None,
+                REJECTED,
+                f"queue for graph {graph_id!r} is at max_queue_depth="
+                f"{self.max_queue_depth}",
+            )
+        deadline = None if deadline_s is None else now + float(deadline_s)
+        if self.shed_unmeetable and deadline is not None:
+            dec = self.policy.shed_on_submit(
+                self._policy_state(now), graph_id, deadline
+            )
+            if dec.shed:
+                self._count("shed")
+                return SubmitTicket(None, SHED, dec.reason)
+        rid = self._next_rid
+        self._next_rid += 1
+        self._pending.setdefault(graph_id, []).append(
+            _Request(rid=rid, x=x, submit_t=now, deadline=deadline)
+        )
+        if len(self._pending[graph_id]) >= self.max_batch:
+            served = self._serve_queues([graph_id], now=now)
+            for gid, out in served.items():
+                self._ready.setdefault(gid, []).append(out)
+        return SubmitTicket(rid, ACCEPTED)
+
+    def poll(self, now: Optional[float] = None) -> Dict[str, torch.Tensor]:
+        """Serve every queue that is *due* and return its batched logits
+        (merged with any batches a ``max_batch`` threshold already
+        auto-flushed).
+
+        A queue is due when its earliest deadline, minus 1.5× its
+        estimated completion time (plus a small floor), has arrived; the
+        completion estimate walks the queues in EDF order over a
+        per-device load map, so co-located queues serialize. When a queue
+        is due, every EDF-predecessor serves with it. ``now`` defaults to
+        ``time.monotonic()`` (tests inject a clock)."""
+        if now is None:
+            now = time.monotonic()
+        due = set(self.policy.due_queues(self._policy_state(now)))
+        # max_batch threshold queues serve regardless of deadlines — the
+        # batching bound is the engine's, not the policy's
+        due |= {g for g, q in self._pending.items() if len(q) >= self.max_batch}
+        return self._drain(self._serve_queues(list(due), now=now))
+
+    def flush(self) -> Dict[str, torch.Tensor]:
+        """Serve all queued requests, batched per graph. Returns
+        ``{graph_id: [B, n, classes] logits}``.
+
+        Queues serve in deterministic earliest-deadline-first order
+        (deadline-free graphs last, ties broken by graph id). A failing
+        batch never takes the others down: every remaining graph is still
+        served, the failed graphs' queues are restored **at the front, in
+        original order** for retry, and the raised ``FlushError`` carries
+        the successful results in ``.partial``."""
+        return self._drain(
+            self._serve_queues([g for g, q in self._pending.items() if q])
+        )
+
+    def _drain(self, served: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Merge freshly served batches with threshold-auto-flushed ones
+        awaiting pickup."""
+        ready, self._ready = self._ready, {}
+        for gid, parts in ready.items():
+            if gid in served:
+                parts = parts + [served[gid]]
+            if len(parts) == 1:
+                served[gid] = parts[0]
+            else:
+                served[gid] = torch.cat(parts, dim=0)
+        return served
+
+    def _serve_queues(
+        self, graph_ids, now: Optional[float] = None
+    ) -> Dict[str, torch.Tensor]:
+        """Serve the named graphs' queues: EDF dispatch order, then await.
+
+        All batches are **dispatched** before any result is awaited;
+        awaiting then happens in the same EDF order. ``batches``/
+        ``requests``/``queue_served`` count a batch only once its
+        completion is proven.
+
+        With ``shed_unmeetable`` on, requests whose deadline even the
+        graph's own batch estimate can no longer meet are shed here —
+        the last gate before device time is spent. A batch whose dispatch
+        retries were exhausted gets its requests restored at the queue
+        front, and one ``FlushError`` reports all failed graphs after
+        every healthy graph was served."""
+        if now is None:
+            now = time.monotonic()
+        # one snapshot serves every ordering + shed decision of this cycle
+        state = self._policy_state(now)
+        order = self.policy.dispatch_order(
+            state, [g for g in graph_ids if self._pending.get(g)]
+        ).graph_ids
+        served: Dict[str, torch.Tensor] = {}
+        failures: Dict[str, Exception] = {}
+        inflight = []
+
+        def restore(gid, reqs):
+            self._pending[gid] = reqs + self._pending.get(gid, [])
+
+        for gid in order:
+            reqs = self._pending.pop(gid)
+            if self.shed_unmeetable:
+                keep = []
+                for r in reqs:
+                    if (
+                        r.deadline is not None
+                        and self.policy.shed_at_dispatch(state, gid, r.deadline).shed
+                    ):
+                        self._count("shed")
+                    else:
+                        keep.append(r)
+                reqs = keep
+                if not reqs:
+                    continue
+            t_disp = time.monotonic()
+            try:
+                parts = self._dispatch_with_retry(gid, [r.x for r in reqs])
+            except Exception as e:
+                failures[gid] = e
+                restore(gid, reqs)
+                continue
+            inflight.append((gid, reqs, parts, t_disp))
+        t_prev = None
+        for gid, reqs, parts, t_disp in inflight:
+            try:
+                out, part_failures = self._await_batch(gid, parts)
+            except Exception as e:
+                failures[gid] = e
+                restore(gid, reqs)
+                continue
+            ok_reqs = reqs
+            if part_failures:
+                failed_idx = set()
+                for f in part_failures:
+                    failed_idx.update(range(f.offset, f.offset + f.n))
+                failed = [r for i, r in enumerate(reqs) if i in failed_idx]
+                ok_reqs = [r for i, r in enumerate(reqs) if i not in failed_idx]
+                restore(gid, failed)
+                self._count("request_failures", len(failed))
+                failures[gid] = part_failures[-1].exc
+            if out is None:
+                continue
+            t_done = time.monotonic()
+            self._count("batches")
+            self._count("requests", len(ok_reqs))
+            self._count("queue_served", len(ok_reqs))
+            # service EWMAs fold the *incremental* completion time of this
+            # batch: everything was dispatched before anything was awaited,
+            # so a later batch's await-since-dispatch span contains every
+            # earlier batch's compute
+            svc_t0 = t_disp if t_prev is None else max(t_disp, t_prev)
+            self._note_served(gid, ok_reqs, svc_t0, t_done)
+            t_prev = t_done
+            served[gid] = out
+        if failures:
+            raise FlushError(failures, served)
+        return served
+
+    def _note_served(
+        self, gid: str, reqs: List[_Request], t_disp: float, t_done: float
+    ) -> None:
+        """Record per-request latency + deadline outcome, and fold the
+        batch service time into the graph's EWMAs."""
+        for r in reqs:
+            lat = t_done - r.submit_t
+            self._lat_n += 1
+            self._lat_total += lat
+            self._lat_max = max(self._lat_max, lat)
+            self._lat_samples.append(lat)
+            if r.deadline is not None:
+                key = "deadline_met" if t_done <= r.deadline else "deadline_misses"
+                self._count(key)
+        self._note_service(gid, t_done - t_disp, len(reqs))
+
+    # counter-settlement: *
+    def _count(self, key: str, n: int = 1) -> None:
+        """Single settlement point for ``self.counters`` (every mutation
+        goes through here or ``reset_stats``, so a raise mid-path cannot
+        leave the overload accounting identity half-applied)."""
+        self.counters[key] += n
+
+    # counter-settlement: *
+    def reset_stats(self) -> None:
+        """Zero the counters and latency aggregates (residency state is
+        untouched)."""
+        self.counters = {k: 0 for k in self.counters}
+        self._lat_n, self._lat_total, self._lat_max = 0, 0.0, 0.0
+        self._lat_samples.clear()
+
+    def latency_percentiles(self) -> Dict[str, float]:
+        """p50/p95/p99 of the recent-request latency reservoir, in
+        microseconds (zeros before any request was served)."""
+        if not self._lat_samples:
+            return {"latency_us_p50": 0.0, "latency_us_p95": 0.0, "latency_us_p99": 0.0}
+        lat = np.asarray(self._lat_samples)
+        p50, p95, p99 = np.percentile(lat, (50.0, 95.0, 99.0)) * 1e6
+        return {
+            "latency_us_p50": float(p50),
+            "latency_us_p95": float(p95),
+            "latency_us_p99": float(p99),
+        }
+
+    def saturation(self) -> Dict[int, float]:
+        """Per-device saturation: estimated busy seconds already
+        committed to each device — outstanding dispatched-but-incomplete
+        work plus the queued backlog the EDF load map assigns it."""
+        load: Dict[int, float] = {}
+        for gid, q in sorted(self._pending.items()):
+            if not q:
+                continue
+            p = self.placer.placement_of(gid)
+            if p is None:
+                continue
+            absorb_load(load, p.kind, p.device_indices, self._svc_ewma.get(gid, 0.0))
+        return {
+            d: self._dev_outstanding.get(d, 0.0) + load.get(d, 0.0)
+            for d in range(self.n_devices)
+        }
+
+    def stats(self) -> dict:
+        sat = self.saturation()
+        return dict(
+            self.counters,
+            device_bytes_in_use=self.device_bytes_in_use,
+            device_budget_bytes=self.device_budget_bytes,
+            n_devices=self.n_devices,
+            n_graphs=len(self._graphs),
+            n_resident=len(self.resident_graphs),
+            pending_requests=sum(len(q) for q in self._pending.values()),
+            queue_depth={g: len(q) for g, q in self._pending.items() if q},
+            saturation_s=sat,
+            latency_n=self._lat_n,
+            latency_us_mean=(
+                self._lat_total / self._lat_n * 1e6 if self._lat_n else 0.0
+            ),
+            latency_us_max=self._lat_max * 1e6,
+            **self.latency_percentiles(),
+            replicas={},  # one device: no replicas (part 2)
+            per_device=self.placer.device_report(
+                extra={d: {"saturation_s": s} for d, s in sat.items()}
+            ),
+        )

@@ -17,6 +17,8 @@ import hashlib
 from collections import OrderedDict
 from typing import Optional
 
+import numpy as np
+
 from repro_torch.core import csc as fmt
 from repro_torch.core import executor as _exe
 from repro_torch.core import reorder as _reorder
@@ -55,12 +57,17 @@ _EXEC_BY_SCHEDULE_CAP = 32
 
 
 def clear_caches() -> None:
-    """Drop every cached schedule/executor/device upload."""
+    """Drop every cached schedule/executor/device upload/tuning result
+    (tests; also the closest thing to simulating a process restart
+    in-process)."""
+    from repro_torch.tuning import runner
+
     _SCHEDULE_CACHE.clear()
     _EXECUTOR_CACHE.clear()
     _REORDER_CACHE.clear()
     _EXEC_BY_SCHEDULE.clear()
     _exe._DEVICE_STEPS.clear()
+    runner._AUTOTUNE_CACHE.clear()
 
 
 def _sched_key(fp, nnz_per_step, rows_per_window, cols_per_block, window_nnz,
@@ -89,6 +96,18 @@ def get_reorder(a: fmt.COO, strategy: str, fingerprint: Optional[str] = None):
         pair = _reorder.permutation(a, strategy)
         _REORDER_CACHE[key] = pair
     return pair
+
+
+def adopt_reorder(fingerprint: str, strategy: str, perm: np.ndarray) -> None:
+    """Seed the reorder cache with a store entry's persisted permutation,
+    so the adopted schedule and the executor's un-permute stay consistent
+    even when a fresh recompute would order ties differently."""
+    if strategy == _reorder.REORDER_NONE or perm is None:
+        return
+    inv = _reorder.invert_permutation(perm)
+    _REORDER_CACHE.setdefault(
+        (fingerprint, strategy), (np.asarray(perm, np.int32), inv)
+    )
 
 
 def release_graph(fingerprint: str) -> None:
@@ -135,6 +154,17 @@ def get_schedule(
             )
         _SCHEDULE_CACHE[key] = sched
     return sched
+
+
+def adopt_schedule(fingerprint: str, cfg, sched: Schedule) -> None:
+    """Seed the schedule cache with a deserialized store entry, so the
+    subsequent ``get_executor(a, **cfg.as_executor_kwargs())`` is a pure
+    cache hit — **zero** ``build_balanced_schedule`` calls on the
+    warm-start path."""
+    key = _sched_key(fingerprint, cfg.nnz_per_step, cfg.rows_per_window,
+                     cfg.cols_per_block, cfg.window_nnz, True,
+                     getattr(cfg, "reorder", "none"))
+    _SCHEDULE_CACHE.setdefault(key, sched)
 
 
 def get_executor(

@@ -155,7 +155,9 @@ def test_executor_paths_launch_the_kernels(dev):
                                routing=routing, device=dev)
         spmm_cuda.reset_launches()
         out = ex.forward_batch(params, xs)
-        assert spmm_cuda.LAUNCHES == {"spmm_balanced": 2, "spmm_epilogue": 2}
+        assert spmm_cuda.LAUNCHES == {"spmm_balanced": 2, "spmm_epilogue": 2,
+                                      "spmm_balanced_bf16acc": 0,
+                                      "spmm_epilogue_bf16acc": 0}
         for i in range(3):
             gold = tgcn.forward(params, a, xs[i])
             assert float((out[i] - gold).abs().max()) <= _tol(gold, torch.float32)
@@ -171,6 +173,120 @@ def test_wrapper_rejects_bad_operands(dev):
             steps, torch.zeros((64, 4), device=dev, dtype=torch.float64))
     with pytest.raises(ValueError):
         spmm_cuda.spmm_window(steps, torch.zeros((4, 64), device=dev).t())
-    with pytest.raises(NotImplementedError):
-        texe.ScheduleExecutor(tsched.build_balanced_schedule(a, 16, 8),
-                              bf16_accumulate=True, device=dev)
+    with pytest.raises(ValueError, match="accumulat"):
+        spmm_cuda.spmm_window(steps, torch.zeros((64, 4), device=dev),
+                              acc_dtype=torch.float16)
+
+
+@pytest.mark.parametrize("kind", sorted(SCHEDULES))
+@pytest.mark.parametrize("kdim", [1, 4, 5, 16, 41, 128, 164, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bf16acc_kernels_match_plain_and_are_deterministic(dev, kind, kdim, dtype):
+    """The bf16-accumulate variant against its plain version bit for bit
+    (each kernel takes the plain version's rounding sequence in its order),
+    against the f32 COO product at the reference's loose 0.1, apart from the
+    f32 kernels' result on the same inputs, and two calls bit-equal."""
+    a = tsynth.power_law_adjacency(200, 0.05, 1.2, seed=kdim)
+    steps = texe.device_step_arrays(SCHEDULES[kind](a), dev)
+    b = torch.from_numpy(np.random.default_rng(kdim).standard_normal(
+        (200, kdim)).astype(np.float32)).to(dev).to(dtype)
+    unperm = torch.from_numpy(np.random.default_rng(1).permutation(200).astype(
+        np.int32)).to(dev)
+    before = dict(spmm_cuda.LAUNCHES)
+    got = spmm_cuda.spmm_balanced(steps, b, acc_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert spmm_cuda.LAUNCHES["spmm_balanced_bf16acc"] == before["spmm_balanced_bf16acc"] + 1
+    assert spmm_cuda.LAUNCHES["spmm_epilogue_bf16acc"] == before["spmm_epilogue_bf16acc"] + 1
+    assert spmm_cuda.LAUNCHES["spmm_balanced"] == before["spmm_balanced"]
+    plain = spmm_cuda.spmm_balanced_plain(steps, b, acc_dtype=torch.bfloat16)
+    assert got.dtype == dtype
+    assert torch.equal(got, plain)
+    part = spmm_cuda.spmm_window(steps, b, acc_dtype=torch.bfloat16)
+    part_p = spmm_cuda.spmm_window_plain(steps, b, acc_dtype=torch.bfloat16)
+    assert torch.equal(part, part_p)
+    for row_unperm in (None, unperm):
+        assert torch.equal(
+            spmm_cuda.spmm_epilogue(steps, part_p, dtype, row_unperm,
+                                    acc_dtype=torch.bfloat16),
+            spmm_cuda.spmm_epilogue_plain(steps, part_p, dtype, row_unperm,
+                                          acc_dtype=torch.bfloat16))
+    gold = tspmm.spmm_coo(a, b.float())
+    assert float((got.float() - gold).abs().max()) <= 0.1
+    # dropping the variant (the f32 kernels under the bf16 name) must fail
+    assert not torch.equal(got, spmm_cuda.spmm_balanced(steps, b))
+    assert torch.equal(spmm_cuda.spmm_balanced(steps, b, acc_dtype=torch.bfloat16), got)
+
+
+def test_bf16_accumulate_executor_runs_on_the_card(dev):
+    a = tsynth.power_law_adjacency(300, 0.03, 0.9, seed=7)
+    s = tsched.build_balanced_schedule(a, 32, 16)
+    ex = texe.ScheduleExecutor(s, bf16_accumulate=True, device=dev)
+    b = torch.randn((300, 24), device=dev)
+    spmm_cuda.reset_launches()
+    got = ex.spmm(b)
+    assert spmm_cuda.LAUNCHES["spmm_balanced_bf16acc"] == 1
+    assert spmm_cuda.LAUNCHES["spmm_balanced"] == 0
+    plain = spmm_cuda.spmm_balanced_plain(s, b, acc_dtype=torch.bfloat16)
+    assert torch.equal(got, plain)
+    assert not torch.equal(got, texe.ScheduleExecutor(s, device=dev).spmm(b))
+    assert float((got - tspmm.spmm_coo(a, b)).abs().max()) <= 0.1
+
+
+def test_cuda_spellings_share_one_executor_and_upload(dev):
+    a = tsynth.power_law_adjacency(300, 0.03, 0.9, seed=8)
+    ex = treg.get_executor(a, nnz_per_step=32, rows_per_window=16)
+    assert treg.get_executor(a, nnz_per_step=32, rows_per_window=16, device="cuda") is ex
+    assert treg.get_executor(a, nnz_per_step=32, rows_per_window=16,
+                             device=torch.device("cuda")) is ex
+    sched = ex.sched
+    assert [k for k in texe._DEVICE_STEPS if k[0] == id(sched)] == [(id(sched), str(dev))]
+    texe.release_device_steps(sched, device="cuda")
+    assert [k for k in texe._DEVICE_STEPS if k[0] == id(sched)] == []
+
+
+def test_autotune_on_the_card_attaches_the_bf16_report(dev):
+    from repro_torch.tuning import runner
+
+    a = tsynth.power_law_adjacency(2000, 0.01, 1.0, seed=3)
+    spmm_cuda.reset_launches()
+    cfg = runner.autotune(a, (2000, 16), iters=2, warmup=1)
+    assert cfg.bf16_max_err is not None and 0 < cfg.bf16_max_err < 0.5
+    assert not cfg.bf16_accumulate and cfg.measured_us > 0
+    assert spmm_cuda.LAUNCHES["spmm_balanced"] > 0
+    assert spmm_cuda.LAUNCHES["spmm_balanced_bf16acc"] == 1
+
+
+def test_engine_warm_start_on_the_card(dev, tmp_path, monkeypatch):
+    from repro_torch.serving.gcn_engine import GCNServingEngine
+    from repro_torch.tuning import runner
+
+    a = tsynth.power_law_adjacency(3000, 0.005, 1.0, seed=4)
+    rng = np.random.default_rng(4)
+    params = tgcn.params_from_jax({
+        "w0": rng.uniform(-0.3, 0.3, (32, 16)).astype(np.float32),
+        "w1": rng.uniform(-0.3, 0.3, (16, 5)).astype(np.float32)}, dev)
+    xs = [torch.rand((3000, 32), device=dev) for _ in range(3)]
+    kw = dict(iters=1, warmup=1, sweep=[dict(
+        nnz_per_step=k, rows_per_window=32, cols_per_block=None, window_nnz=None,
+        routing="gather") for k in (128, 256)])
+    eng = GCNServingEngine(store_root=tmp_path, max_batch=2, autotune_kwargs=kw)
+    rep = eng.add_graph("g", a, params)
+    assert not rep.warm_start and rep.config.bf16_max_err is not None
+    for x in xs:
+        eng.submit("g", x, deadline_s=10.0)
+    out = eng.flush()["g"]
+    assert out.is_cuda and out.shape == (3, 3000, 5)
+    for i, x in enumerate(xs):
+        gold = tgcn.forward(params, a, x)
+        assert float((out[i] - gold).abs().max()) <= _tol(gold, torch.float32)
+    treg.clear_caches()
+    monkeypatch.setattr(runner, "measure_candidate",
+                        lambda *a_, **k: pytest.fail("sweep on warm start"))
+    monkeypatch.setattr(tsched, "build_balanced_schedule",
+                        lambda *a_, **k: pytest.fail("rebuild on warm start"))
+    eng2 = GCNServingEngine(store_root=tmp_path, max_batch=2, autotune_kwargs=kw)
+    rep2 = eng2.add_graph("g", a, params)
+    assert rep2.warm_start and rep2.tune_seconds == 0.0 and rep2.config == rep.config
+    for x in xs:  # the same batches as the cold engine served
+        eng2.submit("g", x, deadline_s=10.0)
+    assert torch.equal(eng2.flush()["g"], out)

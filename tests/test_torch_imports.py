@@ -37,7 +37,13 @@ def test_port_files_exist():
               "src/repro_torch/tuning/registry.py", "chip_smoke.py",
               "src/repro_torch/kernels/flash_attention_cuda.py",
               "src/repro_torch/models/transformer_serve.py",
-              "src/repro_torch/launch/serve.py", "src/repro_torch/configs/qwen2_05b.py"):
+              "src/repro_torch/launch/serve.py", "src/repro_torch/configs/qwen2_05b.py",
+              "src/repro_torch/tuning/runner.py", "src/repro_torch/tuning/store.py",
+              "src/repro_torch/tuning/space.py", "src/repro_torch/serving/gcn_engine.py",
+              "src/repro_torch/serving/policy.py", "src/repro_torch/serving/placement.py",
+              "src/repro_torch/serving/errors.py", "src/repro_torch/serving/types.py",
+              "src/repro_torch/core/pesim.py", "src/repro_torch/core/autotuner.py",
+              "src/repro_torch/core/profiler.py"):
         assert f in names
     for src in ("spmm_balanced.cu", "flash_attention.cu"):
         assert (REPO / "src/repro_torch/kernels/csrc" / src).exists()
@@ -55,7 +61,8 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
             "repro_torch.tuning.registry, "
             "repro_torch.core.gcn, repro_torch.graphs.synth, repro_torch.kernels.ops, "
             "repro_torch.configs, repro_torch.models.transformer_serve, "
-            "repro_torch.launch.serve; "
+            "repro_torch.launch.serve, repro_torch.tuning, repro_torch.serving, "
+            "repro_torch.core.profiler; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "assert not bad, bad; "
             "from repro_torch.kernels import _build; "

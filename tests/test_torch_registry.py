@@ -108,3 +108,16 @@ def test_release_graph_drops_schedules_executors_and_uploads():
     assert treg.get_executor(ta, routing="onehot", reorder="degree", device="cpu") \
         is not ex_a
     assert treg.get_executor(tb, device="cpu") is ex_b
+
+
+def test_cuda_spellings_resolve_to_one_device_key(monkeypatch):
+    """``"cuda"``, ``torch.device("cuda")`` and ``None`` all name the current
+    card, ``cuda:<current_device()>``, so the caches key them alike."""
+    from repro_torch.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    keys = {str(resolve_device(d)) for d in ("cuda", torch.device("cuda"), None, "cuda:0")}
+    assert keys == {"cuda:0"}
+    assert resolve_device("cuda:1") == torch.device("cuda", 1)
+    assert resolve_device("cpu") == torch.device("cpu")

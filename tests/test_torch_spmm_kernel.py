@@ -283,3 +283,56 @@ def test_spmm_coo_family_matches_reference():
                "float32")
     finally:
         tspmm.GATHER_ELEMS = old
+
+
+def test_ops_spmm_signature_matches_reference():
+    import inspect
+
+    from repro.kernels import ops as jops
+
+    assert (list(inspect.signature(ops.spmm).parameters)
+            == list(inspect.signature(jops.spmm).parameters))
+    assert inspect.signature(ops.spmm).parameters["routing"].default == "auto"
+    ta, _, b = _case(64, 0.05, 0.8, 5, 3)
+    s = tsched.build_balanced_schedule(ta, 16, 8)
+    bt = torch.from_numpy(b)
+    want = ops.spmm(s, bt)
+    for routing in ops.ROUTINGS:
+        assert torch.equal(ops.spmm(s, bt, routing=routing), want)
+    with pytest.raises(ValueError, match="routing"):
+        ops.spmm(s, bt, routing="dense")
+
+
+@pytest.mark.parametrize("kind", ["balanced", "blocked_evil", "naive"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bf16_accumulate_plain_matches_reference_executor(kind, dtype):
+    """The bf16-accumulate variant's plain version (the kernel's rounding
+    sequence) against the reference executor's bf16 gather routing, and both
+    against the f32 product loosely (the reference's 0.1)."""
+    from repro.core import executor as jexe
+
+    ta, ja, b = _case(200, 0.05, 1.2, 9, 3)
+    builders = {
+        "balanced": lambda m, a: m.build_balanced_schedule(a, 16, 8),
+        "blocked_evil": lambda m, a: m.build_balanced_schedule(
+            a, 16, 8, cols_per_block=32, evil_threshold=8),
+        "naive": lambda m, a: m.build_naive_schedule(a, 16, 8),
+    }
+    ts, js = builders[kind](tsched, ta), builders[kind](jsched, ja)
+    bt = torch.from_numpy(b).to(dtype)
+    got = spmm_cuda.spmm_balanced_plain(ts, bt, acc_dtype=torch.bfloat16)
+    assert got.dtype == dtype
+    assert torch.equal(got, spmm_cuda.spmm_balanced(ts, bt, acc_dtype=torch.bfloat16))
+    want = np.asarray(jexe.ScheduleExecutor(js, routing="gather", bf16_accumulate=True)
+                      .spmm(jnp.asarray(b, dtype=jnp.dtype(str(dtype)[6:]))),
+                      dtype=np.float32)
+    got32 = got.float().numpy()
+    np.testing.assert_allclose(got32, want, atol=3e-2 * max(1.0, np.abs(want).max()))
+    gold = np.asarray(jspmm.spmm_coo(ja, jnp.asarray(b)))
+    np.testing.assert_allclose(got32, gold, atol=0.1)
+    # each partial holds bf16 values: the rounding is the kernel's
+    steps = texe.device_step_arrays(ts, "cpu")
+    part = spmm_cuda.spmm_window_plain(steps, bt, acc_dtype=torch.bfloat16)
+    assert torch.equal(part, part.bfloat16().float())
+    with pytest.raises(ValueError, match="accumulat"):
+        spmm_cuda.spmm_window_plain(steps, bt, acc_dtype=torch.float16)
