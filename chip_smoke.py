@@ -69,6 +69,26 @@ Builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    (f32, bf16-acc, bf16-acc, f32), its plain version and
    ``torch.sparse.mm`` on bf16 operands (a yardstick that accumulates
    differently).
+7. Streams edge updates into reddit through ``GCNServingEngine.update_graph``
+   (launch counts reset just before and read after the whole phase), on an
+   engine that warm-starts from phase 6's store (zero sweeps, zero builds).
+   The traffic is the JAX package's streaming suite's: deltas of 16 edges
+   from numpy seed 4321, value-only (existing edges re-weighted) or
+   structural (random inserts). 4 warm-up and 16 timed value updates, each
+   after the previous revision's persist has drained, must all take the
+   value lane with a scoped upload; then 8 updates alternating value and
+   structural deltas while a background thread serves a request throughout
+   (no failure allowed), and the old executor's arrays must be unchanged by
+   the swaps; then one structural delta of 4,096 edges, replayed through
+   ``repaired_executor`` alone and beside a cold ``ScheduleExecutor`` on the
+   same repaired schedule (their uploads ``torch.equal``). 4 requests' logits
+   after the chain must equal a one-candidate engine's cold admission of the
+   final graph bit for bit and lie within tolerance of the plain COO forward
+   on it; the engine's allocation must match its accounting as in phase 6.
+   After ``drain_persists`` a restarted engine admits the mutated graph warm
+   (zero sweeps, zero builds) with bit-equal logits. On pubmed, an engine
+   with ``repair_drift_threshold=1e-9`` re-tunes on its first update, within
+   tolerance of the plain forward.
 
 Float32 matmuls and cuDNN run without TF32 (both flags are set False), so
 every float32 product is full float32. Tolerances, each scaled by
@@ -82,8 +102,9 @@ shared bytes and SASS ``HMMA`` count per instantiation (``flash_registers``;
 it fails if one spills or issues no ``HMMA``), a ``{"kernels": [...]}``
 line, a ``{"serving": ...}`` line, a ``{"lm_serving": ...}`` line, the
 window kernel's all-gathers-miss bound per kdim, the flash kernel's bounds
-(``flash_bounds``), an ``{"engine_serving": ...}`` line, the card's name and
-power limit, and as its last line
+(``flash_bounds``), an ``{"engine_serving": ...}`` line, an
+``{"engine_streaming": ...}`` line, the card's name and power limit, and as
+its last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device, or without the rest of the repository, it exits
 non-zero and prints no result.
@@ -125,6 +146,11 @@ BF16ACC_WIDE = 512
 #: the eviction round trip adds beside reddit
 ENGINE_MAX_BATCH, ENGINE_DEADLINE_S, EVICT_GRAPH = 4, 0.25, "pubmed"
 BATCHES, BATCH_SIZE, KEEP, STEADY_S = 3, 4, 0.9, 2.0
+#: phase 7: edges a delta, the deltas' numpy seed (the JAX package's
+#: streaming suite's), warm-up and timed value updates, the alternating
+#: chain under concurrent serving, the wide delta's edges, the drift graph
+STREAM_EDGES, STREAM_SEED, STREAM_WARMUP, STREAM_TIMED = 16, 4321, 4, 16
+STREAM_CHAIN, STREAM_WIDE, DRIFT_GRAPH = 8, 4096, "pubmed"
 # the window kernel's lane mappings timed beside the one it picks, per kdim:
 # (vec, lanes a step, vectors a lane); reddit's B of f32 rows
 LANE_SWEEP = {512: [(4, 16, 1), (4, 32, 1), (4, 32, 4)],
@@ -817,7 +843,397 @@ def phase_engine(dev, ds, base_rps):
                  "spmm_epilogue_bf16acc"):
         if launches[name] == 0:
             raise AssertionError(f"phase 6 never launched {name}")
-    return record, launches, winner
+    return record, launches, winner, store
+
+
+def value_delta(coo, k, rng):
+    """``k`` existing edges re-weighted (the streaming suite's value delta)."""
+    import numpy as np
+
+    from repro_torch.core import csc as fmt
+
+    row, col = fmt.to_numpy(coo.row), fmt.to_numpy(coo.col)
+    idx = rng.choice(row.shape[0], size=min(k, row.shape[0]), replace=False)
+    vals = (rng.random(idx.shape[0]) + 0.5).astype(np.float32)
+    return fmt.EdgeDelta(row[idx], col[idx], vals)
+
+
+def structural_delta(n, k, rng):
+    """``k`` random edges inserted or re-weighted (its structural delta)."""
+    import numpy as np
+
+    from repro_torch.core import csc as fmt
+
+    return fmt.EdgeDelta(rng.integers(0, n, k), rng.integers(0, n, k),
+                         (rng.random(k) + 0.1).astype(np.float32))
+
+
+def coo_on(coo, dev):
+    """A host COO (numpy or tensors) with its arrays on ``dev``."""
+    import torch
+
+    from repro_torch.core import csc as fmt
+
+    return coo._replace(**{f: torch.from_numpy(fmt.to_numpy(getattr(coo, f))).to(dev)
+                           for f in ("row", "col", "val")})
+
+
+def replay_repair(state, delta):
+    """``update_graph``'s repair lane on a captured graph state (COO,
+    permuted COO, per-row counts, schedule, permutation, inverse, config),
+    timed and not published: ``(schedule, stats, apply_s, repair_s)``."""
+    from repro_torch.core import csc as fmt
+    from repro_torch.core import schedule as tsched
+    from repro_torch.serving.gcn_engine import _geometry_kwargs
+
+    coo, pcoo, per_row_old, sched, perm, inv, config = state
+    t0 = time.perf_counter()
+    new_coo, rep = fmt.apply_edge_delta(coo, delta, with_report=True)
+    per_row_new = per_row_old.copy()
+    per_row_new[rep.touched_rows] += rep.row_nnz_delta
+    base, touched = new_coo, rep.touched_rows
+    if perm is not None:
+        pdelta = fmt.EdgeDelta(inv[delta.row], delta.col, delta.val)
+        base, prep = fmt.apply_edge_delta(pcoo, pdelta, with_report=True)
+        touched = prep.touched_rows
+        per_row_old, per_row_new = per_row_old[perm], per_row_new[perm]
+    apply_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    new_sched, stats = tsched.repair_schedule(
+        sched, None, base, touched, per_row_old=per_row_old,
+        per_row_new=per_row_new, **_geometry_kwargs(config))
+    return new_sched, stats, apply_s, time.perf_counter() - t0
+
+
+def state_of(rec):
+    """The graph state ``replay_repair`` starts from."""
+    return (rec.coo, rec.pcoo, rec.per_row, rec.sched, rec.perm, rec.inv, rec.config)
+
+
+def prune_store(store, keep):
+    """Delete the store entries of superseded revisions (each about 342 MB
+    on reddit): every entry not in ``keep`` except the newest."""
+    extra = sorted((p for p in store.dir.glob("*.npz") if p not in keep),
+                   key=lambda p: p.stat().st_mtime)
+    for p in extra[:-1]:
+        p.unlink()
+
+
+def phase_streaming(dev, ds, store):
+    """Edge updates streamed into reddit through ``update_graph``; see the
+    module docstring's phase 7. Returns the ``engine_streaming`` record."""
+    import dataclasses
+    import gc
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import csc as fmt
+    from repro_torch.core import gcn
+    from repro_torch.core import schedule as tsched
+    from repro_torch.core.executor import (ScheduleExecutor, release_device_steps,
+                                           repaired_executor, value_patched_executor)
+    from repro_torch.graphs import synth
+    from repro_torch.kernels import spmm_cuda
+    from repro_torch.serving.gcn_engine import GCNServingEngine, _dedup_value_delta
+    from repro_torch.tuning import registry, runner
+    from repro_torch.tuning.store import TuningStore
+
+    wrapped = {"measure_candidate": runner, "build_balanced_schedule": tsched}
+    originals = {name: getattr(mod, name) for name, mod in wrapped.items()}
+    calls = dict.fromkeys(wrapped, 0)
+
+    def counted(name):
+        def call(*args, **kw):
+            calls[name] += 1
+            return originals[name](*args, **kw)
+        return call
+
+    def cand(cfg):
+        """A one-candidate sweep pinning ``cfg`` (the streaming suite's)."""
+        return dict(iters=1, warmup=1, bf16_report=False, sweep=[dict(
+            nnz_per_step=cfg.nnz_per_step, rows_per_window=cfg.rows_per_window,
+            cols_per_block=cfg.cols_per_block, window_nnz=cfg.window_nnz,
+            routing=cfg.routing, ktile=cfg.ktile, reorder=cfg.reorder)])
+
+    n = ds.num_nodes
+    cfg = gcn.GCNConfig(ds.num_features, ds.hidden, ds.num_classes)
+    params = gcn.params_from_jax(glorot(cfg.dims, seed=0), dev)
+    x = torch.from_numpy(ds.features).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(1)  # phase 2's requests
+    reqs = [x * (torch.rand(x.shape, generator=gen, device=dev) < KEEP)
+            for _ in range(BATCH_SIZE)]
+    del x
+    keep = set(store.dir.glob("*.npz"))
+    rng = np.random.default_rng(STREAM_SEED)
+    registry.clear_caches()
+    for name, mod in wrapped.items():
+        setattr(mod, name, counted(name))
+    try:
+        torch.cuda.synchronize()
+        gc.collect()
+        base_bytes = torch.cuda.memory_allocated(dev)
+        spmm_cuda.reset_launches()
+        # -- warm admission from phase 6's store ----------------------------
+        eng = GCNServingEngine(store=store, max_batch=ENGINE_MAX_BATCH,
+                               device_budget_bytes=1 << 40)
+        t0 = time.perf_counter()
+        adm = eng.add_graph("reddit", ds.adj, params)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        if not adm.warm_start or any(calls.values()):
+            raise AssertionError(f"phase 7's admission was not warm: {adm}, {calls}")
+        eng.infer("reddit", reqs[0])
+        # -- the value lane: warm-up, then timed updates ----------------------
+        for _ in range(STREAM_WARMUP):
+            eng.update_graph("reddit", value_delta(eng._graphs["reddit"].coo,
+                                                   STREAM_EDGES, rng))
+        value_s, persist_s = [], []
+        for _ in range(STREAM_TIMED):
+            delta = value_delta(eng._graphs["reddit"].coo, STREAM_EDGES, rng)
+            # the previous revision's O(nnz) fingerprint and store write
+            # finish first, so their host time stays out of the update's
+            t0 = time.perf_counter()
+            eng.drain_persists()
+            persist_s.append(time.perf_counter() - t0)
+            prune_store(store, keep)
+            rep = eng.update_graph("reddit", delta)
+            if not (rep.repaired and rep.scoped_upload and not rep.fell_back):
+                raise AssertionError(f"a value update left the value lane: {rep}")
+            value_s.append(rep.update_seconds)
+        eng.drain_persists()
+        prune_store(store, keep)
+        # -- alternating chain under concurrent serving ----------------------
+        old_ex = eng._graphs["reddit"].executor
+        old_arrays = [t.clone() for t in old_ex._steps[:5]]
+        stop, served, failures = threading.Event(), [0], []
+
+        def background():
+            while not stop.is_set():
+                try:
+                    y = eng.infer("reddit", reqs[1])
+                    if y.shape != (n, ds.num_classes) or not torch.isfinite(y).all():
+                        raise AssertionError(f"malformed logits {tuple(y.shape)}")
+                    served[0] += 1
+                except Exception as e:  # the failure this phase counts
+                    failures.append(repr(e))
+                    return
+
+        th = threading.Thread(target=background, daemon=True)
+        th.start()
+        chain = []
+        try:
+            for i in range(STREAM_CHAIN):
+                coo = eng._graphs["reddit"].coo
+                delta = (value_delta(coo, STREAM_EDGES, rng) if i % 2 == 0
+                         else structural_delta(n, STREAM_EDGES, rng))
+                rep = eng.update_graph("reddit", delta)
+                if not rep.repaired or rep.fell_back:
+                    raise AssertionError(f"chain update {i} not repaired: {rep}")
+                chain.append({
+                    "kind": "value" if i % 2 == 0 else "structural",
+                    "update_seconds": rep.update_seconds,
+                    "steps_reused": rep.steps_reused,
+                    "n_steps": eng._graphs["reddit"].sched.n_steps,
+                    "windows_reused": rep.windows_reused,
+                    "windows_total": rep.windows_total,
+                    "scoped_upload": rep.scoped_upload})
+        finally:
+            stop.set()
+            th.join(timeout=120.0)
+        if th.is_alive() or failures or served[0] == 0:
+            raise AssertionError(f"serving during the chain: {served[0]} served, "
+                                 f"failures {failures}")
+        if not all(torch.equal(t, c) for t, c in zip(old_ex._steps[:5], old_arrays)):
+            raise AssertionError("a swap wrote into the old executor's arrays")
+        del old_ex, old_arrays
+        eng.drain_persists()
+        prune_store(store, keep)
+        # -- where an update's time goes: both lanes' stages, replayed on
+        # the served state without publishing ------------------------------
+        rec = eng._graphs["reddit"]
+        split = {}
+        delta = value_delta(rec.coo, STREAM_EDGES, rng)
+        t0 = time.perf_counter()
+        fmt.apply_edge_delta(rec.coo, delta, with_report=True)
+        split["value_apply_edge_delta_s"] = time.perf_counter() - t0
+        rows, cols, vals = _dedup_value_delta(delta, n)
+        if rec.perm is not None:
+            rows = rec.inv[rows]
+        # what the first value update after a structural one pays: the
+        # structural swap drops the slot index
+        t0 = time.perf_counter()
+        index = tsched.slot_entry_keys(rec.sched)
+        split["slot_entry_keys_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        vsched, slots = tsched.value_patch_schedule(rec.sched, index, rows, cols, vals)
+        split["value_patch_schedule_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vex = value_patched_executor(rec.executor, vsched, slots, vsched.val[slots])
+        torch.cuda.synchronize()
+        split["value_patched_executor_s"] = time.perf_counter() - t0
+        del vex, index
+        release_device_steps(vsched)
+        ssched, sstats, split["structural_apply_edge_delta_s"], \
+            split["structural_repair_schedule_s"] = replay_repair(
+                state_of(rec), structural_delta(n, STREAM_EDGES, rng))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sex = repaired_executor(rec.executor, ssched, sstats)
+        torch.cuda.synchronize()
+        split["structural_repaired_executor_s"] = time.perf_counter() - t0
+        split["structural_scoped_upload"] = sex.scoped_upload
+        split["structural_steps_reused"] = sstats.steps_reused
+        del sex
+        release_device_steps(ssched)
+        # -- one wide structural update, then its repair replayed ------------
+        state = state_of(rec)
+        old_ex = rec.executor
+        delta = structural_delta(n, STREAM_WIDE, rng)
+        wide = eng.update_graph("reddit", delta)
+        if not wide.repaired or wide.fell_back:
+            raise AssertionError(f"the wide update was not repaired: {wide}")
+        replay, stats, wide_apply_s, wide_repair_s = replay_repair(state, delta)
+        rec = eng._graphs["reddit"]
+        for f in tsched._ARRAY_FIELDS:
+            if not np.array_equal(getattr(replay, f), getattr(rec.sched, f)):
+                raise AssertionError(f"the replayed repair differs in {f}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rex = repaired_executor(old_ex, replay, stats)
+        torch.cuda.synchronize()
+        rex_s = time.perf_counter() - t0
+        twin = dataclasses.replace(replay)  # a new identity: no upload to reuse
+        t0 = time.perf_counter()
+        cold = ScheduleExecutor(twin, ktile=rec.config.ktile,
+                                routing=rec.config.routing, device=dev,
+                                row_unperm=rec.inv)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        if not all(torch.equal(a, b) for a, b in zip(rex._steps[:5], cold._steps[:5])):
+            raise AssertionError("the spliced upload differs from a cold one")
+        wide_scoped_replay = rex.scoped_upload
+        del rex, cold, old_ex
+        release_device_steps(replay)
+        release_device_steps(twin)
+        # -- memory: the engine's accounting ---------------------------------
+        gc.collect()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(dev) - base_bytes
+        engine_bytes = eng.device_bytes_in_use
+        if abs(held - engine_bytes) > 0.05 * engine_bytes + (64 << 20):
+            raise AssertionError(f"after the chain {held} bytes are allocated for the "
+                                 f"engine's {eng.device_bytes_in_use}")
+        # -- correctness after the chain -------------------------------------
+        rec = eng._graphs["reddit"]
+        outs = eng.serve_batch("reddit", reqs)
+        adj = coo_on(rec.coo, dev)
+        max_err = 0.0
+        for out, r in zip(outs, reqs):
+            max_err = max(max_err, check("streamed logits", out,
+                                         gcn.forward(params, adj, r), torch.float32))
+        del adj
+        pinned = GCNServingEngine(store=TuningStore(tempfile.mkdtemp(
+            prefix="chip_smoke_pinned_", dir=ROOT / "build")),
+            autotune_kwargs=cand(rec.config), device_budget_bytes=1 << 40)
+        t0 = time.perf_counter()
+        pinned.add_graph("reddit", rec.coo, params)
+        pinned_s = time.perf_counter() - t0
+        if not torch.equal(pinned.serve_batch("reddit", reqs), outs):
+            raise AssertionError("streamed logits differ from a cold admission's")
+        pinned.remove_graph("reddit")
+        del pinned
+        # -- persist, then a restart ----------------------------------------
+        t0 = time.perf_counter()
+        eng.drain_persists()
+        drain_s = time.perf_counter() - t0
+        fp = registry.graph_fingerprint(rec.coo)
+        if rec.fingerprint != fp:
+            raise AssertionError("the persist worker did not back-fill the fingerprint")
+        final_coo = rec.coo
+        launches = dict(spmm_cuda.LAUNCHES)
+        stats_ = eng.stats()
+        eng.remove_graph("reddit")
+        del eng, rec
+        torch.cuda.empty_cache()
+        registry.clear_caches()
+        before = dict(calls)
+        eng2 = GCNServingEngine(store=store, max_batch=ENGINE_MAX_BATCH,
+                                device_budget_bytes=1 << 40)
+        t0 = time.perf_counter()
+        again = eng2.add_graph("reddit", final_coo, params)
+        torch.cuda.synchronize()
+        restart_s = time.perf_counter() - t0
+        restart_calls = {k: calls[k] - before[k] for k in calls}
+        if not again.warm_start or any(restart_calls.values()):
+            raise AssertionError(f"restart was not warm: {again}, {restart_calls}")
+        if not torch.equal(eng2.serve_batch("reddit", reqs), outs):
+            raise AssertionError("the restarted engine's logits differ")
+        eng2.remove_graph("reddit")
+        del eng2, outs
+        # -- drift re-tune on pubmed ----------------------------------------
+        pub = synth.make_dataset(DRIFT_GRAPH, scale=1, device=dev)
+        pcfg = gcn.GCNConfig(pub.num_features, pub.hidden, pub.num_classes)
+        pparams = gcn.params_from_jax(glorot(pcfg.dims, seed=0), dev)
+        px = torch.from_numpy(pub.features).to(dev)
+        peng = GCNServingEngine(
+            store=TuningStore(tempfile.mkdtemp(prefix="chip_smoke_drift_",
+                                               dir=ROOT / "build")),
+            repair_drift_threshold=1e-9, device_budget_bytes=1 << 40,
+            autotune_kwargs=dict(iters=1, warmup=1, bf16_report=False, sweep=[dict(
+                nnz_per_step=256, rows_per_window=64, cols_per_block=None,
+                window_nnz=None, routing="gather")]))
+        peng.add_graph(DRIFT_GRAPH, pub.adj, pparams)
+        peng.infer(DRIFT_GRAPH, px)
+        drift = peng.update_graph(DRIFT_GRAPH, value_delta(
+            peng._graphs[DRIFT_GRAPH].coo, STREAM_EDGES, rng))
+        if drift.repaired or peng.counters["update_retunes"] != 1:
+            raise AssertionError(f"the drift update did not re-tune: {drift}")
+        drift_err = check("re-tuned pubmed logits", peng.infer(DRIFT_GRAPH, px),
+                          gcn.forward(pparams, coo_on(peng._graphs[DRIFT_GRAPH].coo,
+                                                      dev), px), torch.float32)
+        peng.remove_graph(DRIFT_GRAPH)
+        del peng, pub, px
+    finally:
+        for name, mod in wrapped.items():
+            setattr(mod, name, originals[name])
+    torch.cuda.empty_cache()
+    for name in F32_SPMM:
+        if launches[name] == 0:
+            raise AssertionError(f"phase 7 never launched {name}")
+    structural = [c for c in chain if c["kind"] == "structural"]
+    return {
+        "graph": "reddit", "store": "phase 6's", "delta_edges": STREAM_EDGES,
+        "seed": STREAM_SEED, "warm_add_graph_s": warm_s,
+        "value_updates_timed": len(value_s), "value_update_s": value_s,
+        "value_update_median_s": float(np.median(value_s)),
+        "value_updates_scoped": len(value_s), "persist_s": persist_s,
+        "persist_median_s": float(np.median(persist_s)), "split": split,
+        "chain": chain, "chain_served": served[0], "chain_failures": len(failures),
+        "structural_median_s": float(np.median([c["update_seconds"]
+                                                for c in structural])),
+        "wide_edges": STREAM_WIDE, "wide_update_s": wide.update_seconds,
+        "wide_steps_reused": wide.steps_reused,
+        "wide_windows_reused": wide.windows_reused,
+        "wide_windows_total": wide.windows_total,
+        "wide_scoped_upload": wide.scoped_upload,
+        "wide_replay_scoped_upload": wide_scoped_replay,
+        "wide_apply_edge_delta_s": wide_apply_s,
+        "wide_repair_schedule_s": wide_repair_s,
+        "wide_repaired_executor_s": rex_s, "wide_cold_executor_s": cold_s,
+        "wide_upload_equal_cold": True,
+        "final_nnz": int(final_coo.row.shape[0]), "max_abs_err": max_err,
+        "logits_equal_cold_admission": True, "pinned_add_graph_s": pinned_s,
+        "drain_persists_s": drain_s, "restart_add_graph_s": restart_s,
+        "restart_calls": restart_calls, "restart_logits_equal": True,
+        "held_bytes": held, "device_bytes_in_use": engine_bytes,
+        "graph_updates": stats_["graph_updates"],
+        "drift_graph": DRIFT_GRAPH, "drift_repaired": drift.repaired,
+        "drift_update_s": drift.update_seconds, "drift_max_abs_err": drift_err,
+        "launches": launches,
+    }
 
 
 def serve_requests(eng, reqs):
@@ -1191,14 +1607,20 @@ def main() -> int:
     kernels.append(attn_entry)
     print("[phase 5] flash kernel timed", file=sys.stderr)
     t0 = time.perf_counter()
-    engine, engine_launches, winner = phase_engine(
+    engine, engine_launches, winner, store = phase_engine(
         dev, ds, serving["steady_requests_per_s"])
     print(f"[phase 6] engine served reddit (cold, warm, eviction) in "
           f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
     bf16acc = phase_bf16acc(ds, winner)
     print("[phase 6b] bf16-accumulate SpMM kernels checked and timed on the sweep "
           "winner's schedule", file=sys.stderr)
-    del ds, winner
+    del winner
+    t0 = time.perf_counter()
+    streaming = phase_streaming(dev, ds, store)
+    print(f"[phase 7] streamed updates into reddit in {time.perf_counter() - t0:.1f} s",
+          file=sys.stderr)
+    del ds
+    streaming["card"] = card
     for entry in bf16acc:
         entry["launches"] = engine_launches[entry["name"]]
     kernels.extend(bf16acc)
@@ -1215,6 +1637,7 @@ def main() -> int:
     print(json.dumps({"serving": serving}))
     print(json.dumps({"lm_serving": lm}))
     print(json.dumps({"engine_serving": engine}))
+    print(json.dumps({"engine_streaming": streaming}))
     # the window kernel's bound if every gathered B row came from HBM, per kdim
     print(json.dumps({"spmm_balanced_bound_all_miss_ms": all_miss}))
     # the flash kernel's bounds at the prefill shape: tensor cores (3xTF32 in

@@ -13,6 +13,14 @@ two routing bodies are tensor ops that mirror the JAX package's
 ``row_map`` precomposed) and ``_onehot_impl`` (each step's two one-hot
 contractions, then the scatter epilogue).
 
+Streaming updates (``repaired_executor``, ``value_patched_executor``) make a
+new executor from an old one and a repaired or value-patched schedule,
+reusing what the update left alone and never writing into a tensor the old
+executor holds (copy-on-write: clone, then write the clone). On CUDA the
+kernels' plan is spliced on the host (``spmm_cuda.splice_plan``) instead of
+re-planned, and only the changed slot records go up when the record layout
+is unchanged.
+
 The executor serves inference: its methods record no autograd graph.
 """
 
@@ -132,11 +140,18 @@ class FaultInjector:
 #: process-wide injector instance the seams consult (tests arm/clear it)
 FAULTS = FaultInjector()
 
+#: floor (slot-array bytes) below which a repair re-uploads in full instead
+#: of patching the moved slots into a clone of the old device array: the
+#: scoped patch saves transfer bandwidth on large graphs, but a small
+#: graph's plain re-upload beats its extra operations; tests pin this to 0
+#: to exercise the scoped path.
+SCOPED_UPLOAD_MIN_BYTES = 16 * 1024 * 1024
+
 
 # Device copies of schedule arrays in the kernels' layout, shared between
 # ScheduleExecutor and the kernel wrapper so one schedule is uploaded once
 # no matter who consumes it. Keyed on (schedule identity, device), bounded
-# LRU.
+# LRU; each entry is (schedule, DeviceSteps, host plan).
 _DEVICE_STEPS: "OrderedDict[tuple, tuple]" = OrderedDict()
 _DEVICE_STEPS_CAP = 32
 
@@ -147,27 +162,117 @@ def _placed(x: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
 
+def _upload_plan(plan: dict, shape, device: torch.device) -> spmm_cuda.DeviceSteps:
+    """``DeviceSteps`` of a host plan: its ``DEVICE_FIELDS`` uploaded."""
+    return spmm_cuda.DeviceSteps(
+        **{k: _placed(plan[k], device) for k in spmm_cuda.DEVICE_FIELDS},
+        shape=shape,
+        n_parts=int(plan["part_ptr"][-1]),
+    )
+
+
+def _remember(sched: Schedule, device: torch.device, steps, plan: dict) -> None:
+    """Memoize ``sched``'s upload on ``device`` with its host plan."""
+    key = (id(sched), str(device))
+    _DEVICE_STEPS[key] = (sched, steps, plan)
+    _DEVICE_STEPS.move_to_end(key)
+    if len(_DEVICE_STEPS) > _DEVICE_STEPS_CAP:
+        _DEVICE_STEPS.popitem(last=False)
+
+
+def _device_plan(sched: Schedule, device: torch.device):
+    """``(DeviceSteps, host plan)`` of ``sched`` on a resolved ``device``,
+    planned and uploaded once per (schedule instance, device)."""
+    hit = _DEVICE_STEPS.get((id(sched), str(device)))
+    if hit is not None and hit[0] is sched:
+        _DEVICE_STEPS.move_to_end((id(sched), str(device)))
+        return hit[1], hit[2]
+    plan = spmm_cuda.kernel_plan(sched)
+    steps = _upload_plan(plan, sched.shape, device)
+    _remember(sched, device, steps, plan)
+    return steps, plan
+
+
 def device_step_arrays(sched: Schedule, device=None) -> spmm_cuda.DeviceSteps:
     """The schedule's ``spmm_cuda.DeviceSteps`` on ``device`` (default: the
     card) — the kernels' slot records and step and epilogue index arrays —
     uploaded once per (schedule instance, device) and memoized (bounded
     LRU)."""
-    device = resolve_device(device)
-    key = (id(sched), str(device))
-    hit = _DEVICE_STEPS.get(key)
-    if hit is not None and hit[0] is sched:
-        _DEVICE_STEPS.move_to_end(key)
-        return hit[1]
-    plan = spmm_cuda.kernel_plan(sched)
-    steps = spmm_cuda.DeviceSteps(
-        **{k: _placed(v, device) for k, v in plan.items()},
-        shape=sched.shape,
-        n_parts=int(plan["part_ptr"][-1]),
-    )
-    _DEVICE_STEPS[key] = (sched, steps)
-    if len(_DEVICE_STEPS) > _DEVICE_STEPS_CAP:
-        _DEVICE_STEPS.popitem(last=False)
-    return steps
+    return _device_plan(sched, resolve_device(device))[0]
+
+
+def patched_steps(old_steps: spmm_cuda.DeviceSteps, old_plan: dict,
+                  nnz_per_step: int, slots, vals):
+    """``(DeviceSteps, host plan)`` after a value patch of flat schedule
+    ``slots`` to the non-zero ``vals`` (``spmm_cuda.value_patch_plan``):
+    the changed records go into a clone of the old ones on their device;
+    every other array is the old one. An empty patch shares everything."""
+    if np.asarray(slots).size == 0:
+        return old_steps, old_plan
+    plan, rec = spmm_cuda.value_patch_plan(old_plan, nnz_per_step, slots, vals)
+    return old_steps._replace(slots=_patched_records(old_steps.slots, plan, rec)), plan
+
+
+def _patched_records(old: torch.Tensor, plan: dict, idx: np.ndarray) -> torch.Tensor:
+    """A clone of the old records with rows ``idx`` taken from ``plan``'s:
+    on the records' device and its current stream (the stream serving
+    uses), so the old records, which in-flight batches may still read,
+    stay as they were."""
+    FAULTS.check("upload", device=old.device)
+    records = old.clone()
+    records.index_copy_(0, torch.from_numpy(idx).to(old.device),
+                        torch.from_numpy(plan["slots"][idx]).to(old.device))
+    return records
+
+
+def _ranges(starts: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+    """``concatenate([arange(s, s + n) for s, n in zip(starts, lengths)])``."""
+    first = np.cumsum(lengths) - lengths
+    return np.repeat(starts - first, lengths) + np.arange(int(lengths.sum()))
+
+
+def spliced_steps(old_steps: spmm_cuda.DeviceSteps, old_plan: dict,
+                  new_sched: Schedule, repair):
+    """``(DeviceSteps, host plan, scoped)`` of a repaired schedule from the
+    old upload and plan (``spmm_cuda.splice_plan`` over the repair's
+    ``step_src``); a repair that fell back to a full rebuild is planned
+    and uploaded cold (``scoped`` False). When the records keep
+    their layout (equal ``slot_ptr``), the moved steps' records are written
+    into a clone of the old records on their device — if they are at most
+    half of them and the records reach ``SCOPED_UPLOAD_MIN_BYTES`` — or the
+    old records are shared when no step moved; ``scoped`` is then True.
+    Otherwise the records go up whole. The small index arrays go up anew."""
+    dev = old_steps.slots.device
+    if repair.fell_back or repair.step_src is None:
+        return (*_device_plan(new_sched, dev), False)
+    plan = spmm_cuda.splice_plan(old_plan, new_sched, repair.step_src)
+    src = np.asarray(repair.step_src, np.int64)
+    moved = np.flatnonzero(src != np.arange(src.shape[0]))
+    sp = plan["slot_ptr"]
+    live = np.diff(sp)[moved].astype(np.int64)
+    n_moved = int(live.sum())
+    n_live = plan["slots"].shape[0]
+    same_layout = np.array_equal(sp, old_plan["slot_ptr"])
+    small = {k: _placed(plan[k], dev) for k in spmm_cuda.DEVICE_FIELDS[1:]}
+    if same_layout and n_moved == 0:
+        records, scoped = old_steps.slots, True
+    elif (same_layout and 2 * n_moved <= n_live
+          and plan["slots"].nbytes >= SCOPED_UPLOAD_MIN_BYTES):
+        idx = _ranges(sp[moved].astype(np.int64), live)
+        records, scoped = _patched_records(old_steps.slots, plan, idx), True
+    else:
+        records, scoped = _placed(plan["slots"], dev), False
+    steps = spmm_cuda.DeviceSteps(slots=records, **small, shape=new_sched.shape,
+                                  n_parts=int(plan["part_ptr"][-1]))
+    return steps, plan, scoped
+
+
+def _runs_kernels(device: torch.device) -> bool:
+    """Whether an executor on ``device`` runs the kernels' plan: on CUDA;
+    elsewhere the routing bodies. A seam: a test or a rehearsal may send a
+    host executor down the kernels' path, where each kernel wrapper takes
+    its plain version for a tensor on the CPU."""
+    return device.type == "cuda"
 
 
 class OneHotSteps(NamedTuple):
@@ -238,6 +343,36 @@ def _gather_slots_steps(sched: Schedule, steps: np.ndarray):
     return gcol, tgt, sched.val[sl]
 
 
+def _spliced_host_slots(old_host, new_sched: Schedule, repair):
+    """Host gather-slot arrays of a repaired schedule, spliced from the old
+    executor's retained host slots plus freshly derived slots for the
+    re-emitted steps. Returns ``(gcol, tgt, val, moved)`` where ``moved``
+    flags steps whose position or content changed — the scoped re-upload
+    set. Reused steps carry their slot payloads verbatim: the repair keeps
+    a window-aligned step's ``gcol`` (same local cols and blocks), ``tgt``
+    (the new ``row_map`` holds the same rows at the remapped window slots)
+    and ``val``."""
+    og, ot, ov = old_host
+    k = new_sched.nnz_per_step
+    src = np.asarray(repair.step_src, np.int64)
+    s_new = src.shape[0]
+    if s_new != new_sched.n_steps:
+        raise ValueError("step_src does not match the repaired schedule")
+    moved = src != np.arange(s_new, dtype=np.int64)
+    reused = src >= 0
+    fresh = np.nonzero(~reused)[0]
+    fg, ft, fv = _gather_slots_steps(new_sched, fresh) if fresh.size else (None,) * 3
+
+    def take(oa, fa, dtype):
+        out = np.empty((s_new, k), dtype)
+        out[reused] = oa.reshape(-1, k)[src[reused]]
+        if fa is not None:
+            out[~reused] = fa.reshape(-1, k)
+        return out.reshape(-1)
+
+    return take(og, fg, np.int32), take(ot, ft, np.int32), take(ov, fv, ov.dtype), moved
+
+
 class ScheduleExecutor:
     """Device-resident executor of one converged AWB schedule.
 
@@ -270,6 +405,10 @@ class ScheduleExecutor:
         self.ktile = ktile
         self.bf16_accumulate = bf16_accumulate
         self.device = resolve_device(device)
+        self._slot_chunk_arg = slot_chunk
+        #: set by the streaming constructors: True when the last
+        #: (re)construction uploaded only the changed slots, not the stream
+        self.scoped_upload = False
         k = sched.nnz_per_step
         r = sched.rows_per_window
         cb = sched.cols_per_block
@@ -282,34 +421,183 @@ class ScheduleExecutor:
         )
 
         # ---- one-time host-side precompute + host→device upload ----------
-        if self.device.type == "cuda":
-            self._steps = device_step_arrays(sched, self.device)
+        if _runs_kernels(self.device):
+            # the host plan is kept so a repair can splice it (DESIGN.md §11)
+            self._steps, self._plan = _device_plan(sched, self.device)
             self.device_bytes = self._steps.nbytes
         elif self.routing == GATHER:
-            gcol, tgt, val = _gather_slots(sched)
-            # pad the flat slot stream to a whole number of chunks so the
-            # gather bounds its [chunk, kdim] intermediate
-            s_total = gcol.shape[0]
-            self._slot_chunk = int(min(slot_chunk, max(1, s_total)))
-            pad = (-s_total) % self._slot_chunk
-            self._n_chunks = (s_total + pad) // self._slot_chunk
-
-            def _chunked(x, fill):
-                x = np.concatenate([x, np.full(pad, fill, x.dtype)])
-                return _placed(x.reshape(self._n_chunks, self._slot_chunk),
-                               self.device)
-
-            self._gcol = _chunked(gcol, 0)
-            self._tgt = _chunked(tgt, 0)
-            self._val = _chunked(val, 0.0)
-            self.device_bytes = int(
-                self._gcol.nbytes + self._tgt.nbytes + self._val.nbytes
-            )
+            # host copies are retained so a repair can splice new slot
+            # streams without re-deriving every step (DESIGN.md §11)
+            self._host = _gather_slots(sched)
+            self._upload_chunks()
         else:
             self._onehot = _onehot_steps(sched, self.device)
             self.device_bytes = sum(t.nbytes for t in self._onehot)
         if self._unperm is not None:
             self.device_bytes += int(self._unperm.nbytes)
+
+    def _chunk_grid(self, s_total: int) -> None:
+        """Pad the flat slot stream to a whole number of chunks, so the
+        gather bounds its [chunk, kdim] intermediate."""
+        self._slot_chunk = int(min(self._slot_chunk_arg, max(1, s_total)))
+        self._n_chunks = -(-s_total // self._slot_chunk)
+
+    def _upload_chunks(self) -> None:
+        """Upload the host slot stream ``_host`` whole, chunked (CPU gather
+        routing), and set ``device_bytes`` for it."""
+        gcol, tgt, val = self._host
+        s_total = gcol.shape[0]
+        self._chunk_grid(s_total)
+        pad = self._n_chunks * self._slot_chunk - s_total
+
+        def _chunked(x, fill):
+            x = np.concatenate([x, np.full(pad, fill, x.dtype)])
+            return _placed(x.reshape(self._n_chunks, self._slot_chunk), self.device)
+
+        self._gcol = _chunked(gcol, 0)
+        self._tgt = _chunked(tgt, 0)
+        self._val = _chunked(val, 0.0)
+        self._chunk_bytes()
+
+    def _chunk_bytes(self) -> None:
+        self.device_bytes = int(self._gcol.nbytes + self._tgt.nbytes + self._val.nbytes)
+        if self._unperm is not None:
+            self.device_bytes += int(self._unperm.nbytes)
+
+    def _kwargs(self) -> dict:
+        """The construction arguments a cold rebuild of this executor takes."""
+        return dict(ktile=self.ktile, routing=self.routing,
+                    bf16_accumulate=self.bf16_accumulate,
+                    slot_chunk=self._slot_chunk_arg, device=self.device,
+                    row_unperm=self.row_unperm)
+
+    def _sibling(self, new_sched: Schedule) -> "ScheduleExecutor":
+        """A new executor object for ``new_sched`` with this one's settings
+        and row un-permutation, its device arrays still to be set."""
+        new = type(self).__new__(type(self))
+        new.sched = new_sched
+        new.ktile = self.ktile
+        new.bf16_accumulate = self.bf16_accumulate
+        new.device = self.device
+        new.routing = self.routing
+        new._slot_chunk_arg = self._slot_chunk_arg
+        new.row_unperm = self.row_unperm
+        new._unperm = self._unperm
+        return new
+
+    @classmethod
+    def _from_repair(cls, old_ex: "ScheduleExecutor", new_sched: Schedule,
+                     repair) -> "ScheduleExecutor":
+        """Executor for a repaired schedule that reuses the old executor's
+        device arrays wherever the repair left steps untouched.
+
+        CUDA: the kernels' host plan is spliced (``spliced_steps``; planned
+        cold after a repair that fell back) and registered as
+        ``new_sched``'s upload. CPU gather routing: the host
+        slot stream is spliced (reused steps copy their old slot rows,
+        re-emitted steps derive fresh ones), and when the chunk grid is
+        unchanged only the *moved* slots are written, into clones of the old
+        arrays; its one-hot routing, or a repair that fell back to a full
+        rebuild, builds cold.
+
+        The result is a **new** executor; ``old_ex`` is never mutated. Its
+        arrays equal a cold ``ScheduleExecutor(new_sched, ...)``'s with the
+        same arguments."""
+        if _runs_kernels(old_ex.device):
+            self = old_ex._sibling(new_sched)
+            self._steps, self._plan, self.scoped_upload = spliced_steps(
+                old_ex._steps, old_ex._plan, new_sched, repair)
+            _remember(new_sched, self.device, self._steps, self._plan)
+            self.device_bytes = self._steps.nbytes
+            if self._unperm is not None:
+                self.device_bytes += int(self._unperm.nbytes)
+            return self
+        if repair.fell_back or repair.step_src is None or old_ex.routing != GATHER:
+            return cls(new_sched, **old_ex._kwargs())
+        self = old_ex._sibling(new_sched)
+        k = new_sched.nnz_per_step
+        gcol, tgt, val, moved = _spliced_host_slots(old_ex._host, new_sched, repair)
+        self._host = (gcol, tgt, val)
+        s_total = gcol.shape[0]
+        self._chunk_grid(s_total)
+        # a scoped patch is sound only on an identical padded grid — same
+        # slot count (so the old padding still pads) and same chunking (so
+        # the accumulation order, hence the bitwise output, matches a cold
+        # build)
+        same_grid = (
+            s_total == old_ex._host[0].shape[0]
+            and self._slot_chunk == old_ex._slot_chunk
+            and self._n_chunks == old_ex._n_chunks
+        )
+        n_moved = int(np.count_nonzero(moved)) * k
+        if same_grid and n_moved == 0:
+            # content and layout identical: share the old arrays (nothing
+            # ever writes into an executor's arrays after construction)
+            self._gcol, self._tgt, self._val = old_ex._gcol, old_ex._tgt, old_ex._val
+            self.scoped_upload = True
+        elif (
+            same_grid
+            and 2 * n_moved <= s_total
+            and s_total * 12 >= SCOPED_UPLOAD_MIN_BYTES
+        ):
+            FAULTS.check("upload", device=self.device)
+            steps = np.nonzero(moved)[0]
+            idx = (steps[:, None] * k + np.arange(k, dtype=np.int64)).reshape(-1)
+            didx = torch.from_numpy(idx).to(self.device)
+
+            def _patch(old, host):
+                new = old.clone()
+                new.view(-1)[didx] = torch.from_numpy(host[idx]).to(self.device)
+                return new
+
+            self._gcol = _patch(old_ex._gcol, gcol)
+            self._tgt = _patch(old_ex._tgt, tgt)
+            self._val = _patch(old_ex._val, val)
+            self.scoped_upload = True
+        else:
+            self._upload_chunks()
+            self.scoped_upload = False
+            return self
+        self._chunk_bytes()
+        return self
+
+    @classmethod
+    def _value_patched(cls, old_ex: "ScheduleExecutor", new_sched: Schedule,
+                       slots: np.ndarray, vals: np.ndarray) -> "ScheduleExecutor":
+        """Executor for a *value-only* patched schedule: structure (and so
+        the slot layout) is byte-identical to ``old_ex``'s; only ``val``
+        changed, at the flat ``slots``.
+
+        O(|delta|) on the device: CUDA writes the new values' bits into a
+        clone of the slot records (``patched_steps``) and shares every other
+        array; the CPU gather routing shares ``_gcol``/``_tgt`` and writes
+        the values into a clone of ``_val``. An empty patch shares
+        everything. The one-hot routing on the CPU builds cold."""
+        cuda = _runs_kernels(old_ex.device)
+        if not cuda and old_ex.routing != GATHER:
+            return cls(new_sched, **old_ex._kwargs())
+        self = old_ex._sibling(new_sched)
+        self.scoped_upload = True
+        self.device_bytes = old_ex.device_bytes
+        if cuda:
+            self._steps, self._plan = patched_steps(
+                old_ex._steps, old_ex._plan, new_sched.nnz_per_step, slots, vals)
+            _remember(new_sched, self.device, self._steps, self._plan)
+            return self
+        self._slot_chunk, self._n_chunks = old_ex._slot_chunk, old_ex._n_chunks
+        gcol, tgt, oval = old_ex._host
+        val = oval.copy()
+        val[slots] = np.asarray(vals, val.dtype)
+        self._host = (gcol, tgt, val)
+        self._gcol, self._tgt = old_ex._gcol, old_ex._tgt
+        if slots.size == 0:
+            self._val = old_ex._val
+        else:
+            FAULTS.check("upload", device=self.device)
+            self._val = old_ex._val.clone()
+            self._val.view(-1)[torch.from_numpy(slots).to(self.device)] = (
+                torch.from_numpy(val[slots]).to(self.device))
+        return self
 
     @property
     def _acc_dtype(self):
@@ -385,7 +673,7 @@ class ScheduleExecutor:
         instance: that would be a reference cycle, and the executor's device
         arrays would then outlive its last reference until the cyclic
         garbage collector ran."""
-        if self.device.type == "cuda":
+        if _runs_kernels(self.device):
             return self._kernel_impl(b)
         if self.routing == GATHER:
             return self._gather_impl(b)
@@ -449,3 +737,30 @@ class ScheduleExecutor:
         if self._unperm is not None:
             out = out.index_select(0, self._unperm)
         return out.to(b.dtype)
+
+
+def repaired_executor(old_ex, new_sched: Schedule, repair):
+    """Executor for a repaired schedule (``schedule.repair_schedule``),
+    reusing ``old_ex``'s device arrays wherever the repair left steps
+    untouched — the scoped re-upload path of DESIGN.md §11.
+
+    Dispatches on the old executor's class; always returns a **new**
+    executor and never mutates ``old_ex``, so the serving tier can swap
+    atomically while in-flight batches finish on the old one. Its device
+    arrays equal a cold build's on ``new_sched`` with the same arguments."""
+    if isinstance(old_ex, ScheduleExecutor):
+        return ScheduleExecutor._from_repair(old_ex, new_sched, repair)
+    raise TypeError(f"unsupported executor type: {type(old_ex).__name__}")
+
+
+def value_patched_executor(old_ex, new_sched: Schedule, slots, vals):
+    """Executor for a schedule produced by ``schedule.value_patch_schedule``
+    — structure unchanged, only ``val[slots]`` differ from ``old_ex.sched``.
+
+    The O(|delta|) lane of DESIGN.md §11: only the changed values reach the
+    device, into a clone. Same contract as ``repaired_executor``."""
+    slots = np.asarray(slots, np.int64)
+    vals = np.asarray(vals)
+    if isinstance(old_ex, ScheduleExecutor):
+        return ScheduleExecutor._value_patched(old_ex, new_sched, slots, vals)
+    raise TypeError(f"unsupported executor type: {type(old_ex).__name__}")

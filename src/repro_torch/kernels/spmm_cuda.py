@@ -17,8 +17,10 @@ converged ``Schedule`` with two hand-written CUDA kernels
 ``kernel_plan`` derives at upload, on the host, what the kernels need beyond
 the schedule's own arrays: one 8-byte record per live slot, each step's
 live slots and first partial, and the epilogue's CSR. Only these are
-uploaded (``DeviceSteps``); the plain versions read the same records. ``lane_mapping``
-picks the lanes' layout from kdim, dtype and B's size.
+uploaded (``DeviceSteps``); the plain versions read the same records.
+After a streaming update, ``splice_plan`` and ``value_patch_plan`` derive
+the new plan from the old one, planning only the steps that changed.
+``lane_mapping`` picks the lanes' layout from kdim, dtype and B's size.
 
 ``acc_dtype=torch.bfloat16`` selects the kernels' bf16-accumulate variant,
 the port of the executor's ``bf16_accumulate`` option: B and the slot
@@ -90,6 +92,11 @@ class DeviceSteps(NamedTuple):
         return sum(t.nbytes for t in self[:5])
 
 
+#: the ``kernel_plan`` arrays that are uploaded (``DeviceSteps``' fields);
+#: ``part_row`` stays on the host for ``splice_plan``
+DEVICE_FIELDS = ("slots", "slot_ptr", "part_ptr", "epi_ptr", "epi_part")
+
+
 def kernel_plan(sched: Schedule) -> dict:
     """Host arrays the kernels need beyond the schedule's own.
 
@@ -103,36 +110,124 @@ def kernel_plan(sched: Schedule) -> dict:
       has ``part_ptr[s+1] - part_ptr[s]`` of them, numbered in slot order.
     * ``epi_ptr``/``epi_part``: the CSR from output row to the partials of
       its output slots (``row_map[win * R + lrow]``), ascending.
+    * ``part_row``: each partial's output row (-1: none), which the kernels
+      do not read; ``splice_plan`` carries it over for reused steps.
 
     Steps may come in any order: no partial takes sums from two steps."""
-    (_, n), n_steps, k = sched.shape, sched.n_steps, sched.nnz_per_step
+    return _plan_from_records(*step_records(sched), sched.shape[0])
+
+
+def step_records(sched: Schedule, steps=None):
+    """``kernel_plan``'s per-step pieces for the ascending step indices
+    ``steps`` (None: every step): the steps' slot records in step order,
+    each step's live slots and partials, and each partial's output row."""
+    (_, n), k = sched.shape, sched.nnz_per_step
     if n > 2**31 - 1:
         raise ValueError(f"B has {n} rows; a slot record holds a 31-bit row")
-    val = sched.val.reshape(n_steps, k)
-    lrow = sched.local_row.reshape(n_steps, k)
+    val = sched.val.reshape(-1, k)
+    lrow = sched.local_row.reshape(-1, k)
+    lcol = sched.local_col.reshape(-1, k)
+    win, cblk = sched.win_id, sched.col_block
+    if steps is not None:
+        steps = np.asarray(steps, np.int64)
+        val, lrow, lcol, win, cblk = (x[steps] for x in (val, lrow, lcol, win, cblk))
     nz = val != 0
     live = np.where(nz.any(axis=1), k - np.argmax(nz[:, ::-1], axis=1), 0)
     in_live = np.arange(k)[None, :] < live[:, None]
     start = in_live.copy()
     start[:, 1:] &= lrow[:, 1:] != lrow[:, :-1]
-    gcol = np.minimum(sched.col_block.astype(np.int64)[:, None] * sched.cols_per_block
-                      + sched.local_col.reshape(n_steps, k), n - 1)
+    gcol = np.minimum(cblk.astype(np.int64)[:, None] * sched.cols_per_block + lcol,
+                      n - 1)
     head = (gcol | start.astype(np.int64) << 31).astype(np.uint32).view(np.int32)
     slots = np.stack([head[in_live], val[in_live].view(np.int32)], axis=1)
-    part_ptr = np.concatenate([[0], np.cumsum(start.sum(axis=1))])
     step, slot = np.nonzero(start)  # partials in order
-    part_row = sched.row_map[sched.win_id[step].astype(np.int64)
-                             * sched.rows_per_window + lrow[step, slot]]
+    part_row = sched.row_map[win[step].astype(np.int64) * sched.rows_per_window
+                             + lrow[step, slot]]
+    return slots, live, start.sum(axis=1), part_row
+
+
+def _plan_from_records(slots, live, n_part, part_row, m: int) -> dict:
+    """The plan of steps with these records, live slots and partials per
+    step, and partials' output rows: the step pointers by prefix sums, the
+    epilogue's CSR by a stable sort of the partials on their rows."""
     kept = np.flatnonzero(part_row >= 0)
     order = np.argsort(part_row[kept], kind="stable")
-    rows = np.bincount(part_row[kept], minlength=sched.shape[0])
+    rows = np.bincount(part_row[kept], minlength=m)
     return {
         "slots": slots,
         "slot_ptr": np.concatenate([[0], np.cumsum(live)]).astype(np.int32),
-        "part_ptr": part_ptr.astype(np.int32),
+        "part_ptr": np.concatenate([[0], np.cumsum(n_part)]).astype(np.int32),
         "epi_ptr": np.concatenate([[0], np.cumsum(rows)]).astype(np.int32),
         "epi_part": kept[order].astype(np.int32),
+        "part_row": np.asarray(part_row, np.int32),
     }
+
+
+def splice_plan(old: dict, new_sched: Schedule, step_src) -> dict:
+    """``kernel_plan(new_sched)`` from the old schedule's plan and a repair's
+    ``step_src`` (per new step, the old step whose slots it carries
+    verbatim, or -1): a reused step keeps its records, its run starts and
+    its partials' output rows (a repair remaps ``row_map`` to the new
+    windows without changing the rows it names), so only re-emitted steps
+    are planned afresh. Reused steps whose sources follow one another are
+    copied as one range. Equal to the full plan, array for array."""
+    src = np.asarray(step_src, np.int64)
+    s_new = src.shape[0]
+    if s_new != new_sched.n_steps:
+        raise ValueError("step_src does not match the repaired schedule")
+    reused = src >= 0
+    fresh = np.flatnonzero(~reused)
+    f_slots, f_live, f_part, f_rows = step_records(new_sched, fresh)
+    o_sp = old["slot_ptr"].astype(np.int64)
+    o_pp = old["part_ptr"].astype(np.int64)
+    live = np.empty(s_new, np.int64)
+    n_part = np.empty(s_new, np.int64)
+    live[reused] = np.diff(o_sp)[src[reused]]
+    n_part[reused] = np.diff(o_pp)[src[reused]]
+    live[fresh], n_part[fresh] = f_live, f_part
+    sp = np.concatenate([[0], np.cumsum(live)])
+    pp = np.concatenate([[0], np.cumsum(n_part)])
+    # ranges: a run of reused steps with consecutive sources, or of fresh steps
+    cut = np.ones(s_new, bool)
+    cut[1:] = (reused[1:] != reused[:-1]) | (reused[1:] & (src[1:] != src[:-1] + 1))
+    lo = np.flatnonzero(cut)
+    hi = np.append(lo[1:], s_new)
+    slots = np.empty((int(sp[-1]), 2), np.int32)
+    rows = np.empty(int(pp[-1]), np.int32)
+    fs = fp = 0
+    for a, b in zip(lo.tolist(), hi.tolist()):
+        ns, np_ = sp[b] - sp[a], pp[b] - pp[a]
+        if reused[a]:
+            s0, p0 = o_sp[src[a]], o_pp[src[a]]
+            slots[sp[a]:sp[b]] = old["slots"][s0:s0 + ns]
+            rows[pp[a]:pp[b]] = old["part_row"][p0:p0 + np_]
+        else:
+            slots[sp[a]:sp[b]] = f_slots[fs:fs + ns]
+            rows[pp[a]:pp[b]] = f_rows[fp:fp + np_]
+            fs, fp = fs + ns, fp + np_
+    return _plan_from_records(slots, live, n_part, rows, new_sched.shape[0])
+
+
+def value_patch_plan(plan: dict, nnz_per_step: int, slots, vals):
+    """``(plan, records)`` after the flat schedule ``slots`` take the
+    non-zero ``vals``: the plan with a copy of the records holding the new
+    values' bits, and the indices of the records that changed
+    (``slot_ptr[slot // K] + slot % K``). Every other array is shared. A
+    non-zero slot patched to a non-zero value stays in its step's live
+    prefix, so the layout holds; anything else raises."""
+    slots = np.asarray(slots, np.int64)
+    vals = np.asarray(vals, np.float32)
+    if not np.all(vals != 0):
+        raise ValueError("a value patch to zero changes the live slots; the "
+                         "repair lane takes removals")
+    step, off = np.divmod(slots, nnz_per_step)
+    ptr = plan["slot_ptr"]
+    if np.any(off >= ptr[step + 1] - ptr[step]):
+        raise ValueError("a patched slot lies outside its step's live slots")
+    rec = ptr[step].astype(np.int64) + off
+    records = plan["slots"].copy()
+    records[rec, 1] = vals.view(np.int32)
+    return dict(plan, slots=records), rec
 
 
 def lane_mapping(kdim: int, dtype, aligned: bool = True, rows: int = 0):

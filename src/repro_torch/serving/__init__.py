@@ -2,15 +2,14 @@
 
 One import point for the GCN serving stack, as ``repro.serving`` has it:
 
-* ``GCNServingEngine`` — the deadline-aware engine (part 1: one device),
-  with ``GCNServingEngine(policy=...)`` as the scheduling seam;
+* ``GCNServingEngine`` — the deadline-aware engine (one device), with
+  ``GCNServingEngine(policy=...)`` as the scheduling seam, and the
+  ``AdmitReport``/``UpdateReport`` of ``add_graph``/``update_graph``;
 * ``SchedulingPolicy`` / ``HeuristicPolicy`` / ``LearnedServiceTimePolicy``
   plus the policy state/decision types;
 * ``MeshPlacer`` / ``Placement`` — placement bookkeeping;
 * ``SubmitTicket`` with its ``ACCEPTED``/``REJECTED``/``SHED`` statuses;
 * the typed error family under ``ServingError``.
-
-``UpdateReport`` belongs to ``update_graph``, which part 2 of the port adds.
 """
 
 from __future__ import annotations
@@ -21,7 +20,7 @@ from repro_torch.serving.errors import (
     ServingError,
     UnknownGraphError,
 )
-from repro_torch.serving.gcn_engine import AdmitReport, GCNServingEngine
+from repro_torch.serving.gcn_engine import AdmitReport, GCNServingEngine, UpdateReport
 from repro_torch.serving.placement import MeshPlacer, Placement
 from repro_torch.serving.policy import (
     DispatchOrder,
@@ -58,4 +57,5 @@ __all__ = [
     "ShedDecision",
     "SubmitTicket",
     "UnknownGraphError",
+    "UpdateReport",
 ]

@@ -1,4 +1,4 @@
-"""Deadline-aware GCN serving engine on the tuning store — part 1: one device.
+"""Deadline-aware GCN serving engine on the tuning store, on one device.
 
 The port of ``repro.serving.gcn_engine``. A serving system holds *many*
 graphs — one converged configuration each — and rotates them through
@@ -29,6 +29,14 @@ the host):
   against ``device_budget_bytes``. Admission beyond the budget evicts the
   least-recently-served graphs; the host schedule, config and weights are
   kept, so re-admission is a re-upload — no rebuild, no sweep.
+* **Streaming updates.** ``update_graph`` applies an edge delta to a served
+  graph: the host COO is patched, the balanced schedule is repaired (or,
+  for a value-only delta, value-patched) instead of rebuilt, the executor
+  is spliced with a scoped re-upload, and the new executor swaps in under
+  the swap lock while in-flight batches finish on the old one. The O(nnz)
+  content fingerprint and store write of the new revision run on a
+  background persist worker (``drain_persists``). Past
+  ``repair_drift_threshold`` the update re-tunes the graph instead.
 * **Overload and faults.** ``submit`` returns a typed ``SubmitTicket``;
   ``max_queue_depth`` rejects overflow and ``shed_unmeetable`` sheds
   requests whose deadline the predicted wait already rules out. Transient
@@ -41,9 +49,9 @@ Every scheduling choice — placement, shedding, queue ordering and dueness —
 goes through the ``serving.policy.SchedulingPolicy`` seam.
 
 Not ported yet, and raising ``NotImplementedError`` (ROADMAP queue 1, item
-5): more than one device, and with it the sharded route, replicas and
-migration; ``update_graph`` with its persist worker; sibling-replica retry
-and the recovery ladder.
+5b): more than one device, and with it the sharded route, replicas across
+cards, migration and rebalance; sibling-replica retry and the recovery
+ladder.
 
 The engine bypasses ``tuning.registry``'s unbounded fingerprint caches for
 its executors — eviction must actually free device memory, so the engine's
@@ -53,6 +61,7 @@ executor references are the only ones.
 from __future__ import annotations
 
 import dataclasses
+import queue as queue_mod
 import threading
 import time
 from collections import OrderedDict, deque
@@ -62,8 +71,19 @@ import numpy as np
 import torch
 
 from repro_torch.core import csc as fmt
-from repro_torch.core.executor import FAULTS, ScheduleExecutor, release_device_steps
-from repro_torch.core.schedule import Schedule
+from repro_torch.core.executor import (
+    FAULTS,
+    ScheduleExecutor,
+    release_device_steps,
+    repaired_executor,
+    value_patched_executor,
+)
+from repro_torch.core.schedule import (
+    Schedule,
+    repair_schedule,
+    slot_entry_keys,
+    value_patch_schedule,
+)
 from repro_torch.device import resolve_device
 from repro_torch.serving.errors import (  # noqa: F401 — historical import path
     FlushError,
@@ -88,8 +108,8 @@ from repro_torch.tuning.store import TuningStore, device_count
 #: path's 12 bytes/slot plus schedule padding slack
 _BYTES_PER_NNZ_EST = 16
 
-#: what the single-device engine leaves to part 2 of the port
-_PART_2 = "is not ported yet (ROADMAP queue 1, item 5)"
+#: what the single-device engine leaves to the multi-device half of the port
+_PART_2 = "is not ported yet (ROADMAP queue 1, item 5b: the multi-device engine)"
 
 #: bounded reservoir of recent per-request latencies (seconds) backing
 #: the p50/p95/p99 percentiles in ``stats()``.
@@ -134,6 +154,38 @@ class AdmitReport:
 
 
 @dataclasses.dataclass
+class UpdateReport:
+    """What ``update_graph`` did for one edge delta.
+
+    ``repaired`` is True on the incremental path (schedule patched in
+    place, scoped re-upload) and False when cumulative drift forced the
+    full re-tune fallback. ``fingerprint`` is the content hash of the
+    mutated graph (what a fresh ``add_graph`` would compute) — on the
+    incremental path it is ``""`` because the O(nnz) hash + store write
+    run on the async persist worker (``drain_persists()`` then
+    ``engine._graphs[gid].fingerprint`` to observe it); ``lineage`` is
+    the cheap chained delta fingerprint, available on every path.
+    ``steps_reused``/``windows_reused`` quantify how much of the old
+    schedule carried over, and ``scoped_upload`` reports whether the
+    executor patched only dirty device slots instead of re-uploading
+    everything."""
+
+    graph_id: str
+    repaired: bool
+    revision: int
+    fingerprint: str
+    lineage: str
+    drift: float
+    nnz: int
+    update_seconds: float
+    steps_reused: int = 0
+    windows_reused: int = 0
+    windows_total: int = 0
+    scoped_upload: bool = False
+    fell_back: bool = False  # repair degenerated to a full rebuild
+
+
+@dataclasses.dataclass
 class _Request:
     """One queued inference request."""
     rid: int
@@ -170,7 +222,7 @@ class _Part:
 @dataclasses.dataclass
 class _Resident:
     graph_id: str
-    fingerprint: str  # guarded-by: _swap_lock
+    fingerprint: str  # guarded-by: _swap_lock (persist worker back-fills)
     config: TunedConfig
     sched: Schedule  # host copy — survives eviction
     params_host: dict  # host copy — survives eviction
@@ -178,16 +230,71 @@ class _Resident:
     #: the graph's ScheduleExecutor (None while evicted)
     executor: Optional[ScheduleExecutor] = None  # guarded-by: _swap_lock
     bytes: int = 0  # schedule + weight device bytes; guarded-by: _swap_lock
-    #: host COO of the graph as served (PAD-stripped): its size feeds the
-    #: policy's graph features
+    # ---- streaming-update state (DESIGN.md §11) ----
+    #: host COO of the graph as currently served (PAD-stripped, row-major)
+    #: — the base ``update_graph`` applies edge deltas to; its size feeds
+    #: the policy's graph features
     coo: Optional[fmt.COO] = None
-    kdim: int = 0  # tuning probe width
+    #: cached per-row nnz histogram, updated incrementally from each
+    #: ``DeltaReport`` so repair never re-scans the graph
+    per_row: Optional[np.ndarray] = None
+    kdim: int = 0  # tuning probe width (re-tune fallback reuses it)
+    revision: int = 0  # repair generation, 0 = cold; guarded-by: _swap_lock
+    orig_nnz: int = 0  # nnz at the last full (re-)tune
+    drift_nnz: int = 0  # cumulative delta entries since then
+    #: chained delta fingerprint — the deterministic lineage anchor for
+    #: the next update. Decoupled from ``fingerprint`` because content
+    #: fingerprints of async-persisted revisions land *after* the swap;
+    #: chaining on them would make the lineage timing-dependent.
+    lineage: str = ""
+    #: lazily-built ``slot_entry_keys`` index of ``sched`` for the
+    #: value-only O(|delta|) update path; cleared whenever a swap changes
+    #: the schedule *structure* (a value patch keeps the layout, so the
+    #: index survives it)
+    slot_cache: Optional[tuple] = None
     #: the row permutation ``sched`` was built under (``perm[new] = old``)
     #: and its inverse; both None for the identity order. Executors built
     #: from ``sched`` un-permute with ``inv`` so outputs stay in original
     #: row order.
     perm: Optional[np.ndarray] = None
     inv: Optional[np.ndarray] = None
+    #: permuted-row twin of ``coo`` (row ``inv[r]`` holds original row
+    #: ``r``) — the base schedule repair operates on; ``coo`` itself stays
+    #: in original order because content fingerprints and delta lineage
+    #: must not depend on the accepted permutation. None when no reorder.
+    pcoo: Optional[fmt.COO] = None
+
+
+#: ``_swap_in`` sentinel: leave the record's reorder fields untouched
+#: (repairs keep the admission permutation; only a re-tune replaces it).
+_KEEP = object()
+
+
+def _geometry_kwargs(cfg: TunedConfig) -> dict:
+    """``as_schedule_kwargs`` minus the ``reorder`` axis — what
+    ``repair_schedule`` accepts (the repair already runs in the permuted
+    row space; re-stating the permutation would double-apply it)."""
+    kw = cfg.as_schedule_kwargs()
+    kw.pop("reorder", None)
+    return kw
+
+
+def _dedup_value_delta(delta: fmt.EdgeDelta, n: int):
+    """The delta's effective value writes: last-write-wins per ``(row,
+    col)`` (matching ``csc.apply_edge_delta``), with ``val == 0`` entries
+    dropped — on the pure-value path those are no-op removals of absent
+    edges (an actual removal would have taken the structural path)."""
+    rows = fmt.to_numpy(delta.row).astype(np.int64)
+    cols = fmt.to_numpy(delta.col).astype(np.int64)
+    vals = fmt.to_numpy(delta.val)
+    key = rows * n + cols
+    order = np.argsort(key, kind="stable")
+    ks = key[order]
+    last = np.ones(ks.size, bool)
+    last[:-1] = ks[1:] != ks[:-1]
+    keep = order[last]
+    keep = keep[vals[keep] != 0.0]
+    return rows[keep], cols[keep], vals[keep]
 
 
 def _earliest_deadline(queue: List[_Request]) -> float:
@@ -208,7 +315,7 @@ class GCNServingEngine:
     ``device`` (default: the card) is where every graph serves; pass
     ``device="cpu"`` for the host. ``devices`` keeps the reference's mesh
     argument: None or 1 (or a one-device list) is this engine; more devices
-    raise ``NotImplementedError`` until part 2 of the port.
+    raise ``NotImplementedError`` until the multi-device half of the port.
 
     ``device_budget_bytes`` bounds the device's resident schedule+weight
     bytes; the graph being served is always kept resident, even if it
@@ -229,9 +336,11 @@ class GCNServingEngine:
     rules out is dropped — at submit time and again at dispatch time.
     Transient dispatch failures retry up to ``max_dispatch_retries`` times
     with exponential backoff starting at ``retry_backoff_s`` seconds
-    (validation errors never retry). The replication, rebalance and repair
-    knobs are accepted and validated as the reference does; they act in
-    part 2 only.
+    (validation errors never retry). ``repair_drift_threshold`` bounds the
+    cumulative delta entries, as a share of the nnz at the last full tune,
+    that ``update_graph`` repairs before it re-tunes. The replication and
+    rebalance knobs are accepted and validated as the reference does; they
+    act in the multi-device engine only.
     """
 
     def __init__(
@@ -300,9 +409,19 @@ class GCNServingEngine:
                 f"{repair_drift_threshold}"
             )
         self.repair_drift_threshold = float(repair_drift_threshold)
-        #: serializes publication of a graph's device state (executor,
-        #: weights, bytes) against the snapshots dispatches take of it
+        #: serializes publication of a graph's state (executor, weights,
+        #: bytes, schedule, revision) against the snapshots dispatches take
+        #: of it — the zero-gap guarantee of ``update_graph``: a dispatch
+        #: sees the whole old executor or the whole new one
         self._swap_lock = threading.Lock()
+        #: async schedule-persist pipeline: content fingerprint + store
+        #: write of a repaired revision run on a worker thread, off the
+        #: update hot path (both are O(nnz); the repair itself is O(delta))
+        self._persist_q: "queue_mod.Queue" = queue_mod.Queue()
+        self._persist_thread: Optional[threading.Thread] = (
+            None  # guarded-by: _persist_spawn_lock
+        )
+        self._persist_spawn_lock = threading.Lock()
         self._autotune_kwargs = dict(autotune_kwargs or {})
         reserved = {"max_devices", "store", "device"} & set(self._autotune_kwargs)
         if reserved:
@@ -333,7 +452,7 @@ class GCNServingEngine:
         # (`requests` also counts direct serve_batch work, so the queue
         # path gets its own served counter; `dropped` settles requests a
         # remove_graph failed while still queued). Every counter of the
-        # reference is kept; those of part 2 stay at zero.
+        # reference is kept; those of the multi-device engine stay at zero.
         self.counters = {
             "store_hits": 0,
             "store_misses": 0,
@@ -407,7 +526,7 @@ class GCNServingEngine:
             earliest_deadline=_earliest_deadline(q),
             svc_ewma=self._svc_ewma.get(gid, 0.0),
             svc_req_ewma=self._svc_req_ewma.get(gid, 0.0),
-            calm_polls=0,  # replica hysteresis: part 2
+            calm_polls=0,  # replica hysteresis: the multi-device engine
         )
 
     def _policy_state(self, now: Optional[float] = None) -> PolicyState:
@@ -501,21 +620,28 @@ class GCNServingEngine:
             # keeping anything resident (perm/inv above are plain refs)
             registry.release_graph(fp)
             tune_s = time.perf_counter() - t0
+        # host-resident base for streaming updates: PAD-stripped numpy
+        # COO + its per-row nnz histogram (kept current by DeltaReports)
         row = fmt.to_numpy(a.row)
         keep = row != fmt.PAD_IDX
         col, val = fmt.to_numpy(a.col), fmt.to_numpy(a.val)
         if not keep.all():
             row, col, val = row[keep], col[keep], val[keep]
+        host_coo = fmt.COO(row.astype(np.int32), col.astype(np.int32), val, a.shape)
         rec = _Resident(
             graph_id=graph_id,
             fingerprint=fp,
+            lineage=fp,
             config=cfg,
             sched=sched,
             params_host=_host_params(params),
-            coo=fmt.COO(row.astype(np.int32), col.astype(np.int32), val, a.shape),
+            coo=host_coo,
+            per_row=np.bincount(row.astype(np.int64), minlength=a.shape[0]),
             kdim=int(kdim),
+            orig_nnz=int(row.shape[0]),
             perm=perm,
             inv=inv,
+            pcoo=None if perm is None else fmt.permute_coo(host_coo, perm),
         )
         self._graphs[graph_id] = rec
         decision = self.policy.place(self._policy_state(), graph_id, est)
@@ -571,9 +697,386 @@ class GCNServingEngine:
                 len(dropped),
             )
 
-    def update_graph(self, graph_id: str, delta) -> None:
-        """Streaming edge updates with incremental schedule repair."""
-        raise NotImplementedError(f"update_graph {_PART_2}")
+    # ---- streaming updates (DESIGN.md §11) ---------------------------------
+
+    @staticmethod
+    def _weight_bytes(params: dict) -> int:
+        return sum(int(w.nbytes) for w in params.values())
+
+    def _fresh_executor(self, sched: Schedule, cfg: TunedConfig, device_index: int,
+                        row_unperm: Optional[np.ndarray] = None) -> ScheduleExecutor:
+        """Cold executor for the graph's serving copy (the re-tune
+        fallback's builder — full plan and upload)."""
+        return ScheduleExecutor(
+            sched,
+            ktile=cfg.ktile,
+            routing=cfg.routing,
+            bf16_accumulate=cfg.bf16_accumulate,
+            device=self.devices[device_index],
+            row_unperm=row_unperm,
+        )
+
+    def _rebuilt_units(self, rec: _Resident, p: Placement, build) -> _Unit:
+        """New executor for the graph's serving copy via
+        ``build(old_executor, device_index)``. Runs *outside* the swap
+        lock: device memory transiently holds old and new copies while
+        in-flight batches keep serving on the old executor. Weights are
+        reused in place (an edge delta never changes them)."""
+        with self._swap_lock:
+            old_ex, params = rec.executor, rec.params
+        ex = build(old_ex, p.device_index)
+        return _Unit(p.device_index, ex, params,
+                     ex.device_bytes + self._weight_bytes(params))
+
+    def _swap_in(
+        self,
+        rec: _Resident,
+        unit: Optional[_Unit],
+        *,
+        coo,
+        per_row,
+        sched: Schedule,
+        fingerprint: Optional[str],
+        lineage: Optional[str] = None,
+        config: Optional[TunedConfig] = None,
+        reset_drift: bool = False,
+        keep_slot_cache: bool = False,
+        pcoo=None,
+        perm=_KEEP,
+        inv=_KEEP,
+    ) -> int:
+        """Atomically publish a graph's new host state and (when resident)
+        its rebuilt executor — the versioned swap protocol: new dispatches
+        snapshot the new executor, in-flight batches finish on the old one
+        (their launches already hold its arrays), and no request ever
+        observes a missing executor.
+
+        ``fingerprint=None`` defers the content fingerprint: the async
+        persist worker fills it in (under this same lock) once computed,
+        provided the revision hasn't moved on by then. ``pcoo`` is the new
+        permuted-row COO twin (None for the identity order); ``perm``/
+        ``inv`` default to the ``_KEEP`` sentinel — a repair keeps the
+        admission permutation, only the re-tune passes a replacement.
+        Returns the new revision."""
+        old_sched = rec.sched
+        with self._swap_lock:
+            resident = rec.executor is not None and unit is not None
+            rec.coo = coo
+            rec.per_row = per_row
+            rec.sched = sched
+            rec.pcoo = pcoo
+            if perm is not _KEEP:
+                rec.perm = perm
+                rec.inv = inv
+            if fingerprint is not None:
+                rec.fingerprint = fingerprint
+            if lineage is not None:
+                rec.lineage = lineage
+            if not keep_slot_cache:
+                rec.slot_cache = None
+            rec.revision += 1
+            revision = rec.revision
+            if config is not None:
+                rec.config = config
+            if reset_drift:
+                rec.orig_nnz = int(coo.row.shape[0])
+                rec.drift_nnz = 0
+            if resident:
+                old_total = rec.bytes
+                rec.executor, rec.params, rec.bytes = (
+                    unit.executor, unit.params, unit.bytes)
+        # old-schedule cleanup + byte accounting happen outside the lock:
+        # they touch no field a dispatch snapshot reads
+        release_device_steps(old_sched)
+        if resident:
+            self.placer.reaccount(rec.graph_id, unit.bytes)
+            self.device_bytes_in_use += unit.bytes - old_total
+            self._evict_over_budget(keep=rec.graph_id)
+        return revision
+
+    def update_graph(self, graph_id: str, delta: fmt.EdgeDelta) -> UpdateReport:
+        """Apply a batch of edge mutations to a served graph with
+        incremental schedule repair — AWB-GCN's runtime rebalancing moves
+        (distribution smoothing, remote switching, row remapping) applied
+        as *delta operators* on the converged schedule instead of a
+        from-scratch rebuild.
+
+        The incremental path patches the host COO (``csc.
+        apply_edge_delta``), repairs the balanced schedule
+        (``schedule.repair_schedule`` — bit-identical to a cold
+        ``build_balanced_schedule`` on the mutated graph; a value-only delta
+        takes ``schedule.value_patch_schedule``), splices the executor with
+        a scoped re-upload of just the changed slots
+        (``executor.repaired_executor`` / ``value_patched_executor``),
+        persists the new schedule under the mutated graph's content
+        fingerprint on the background worker (a restart warm-starts it with
+        zero sweeps), and atomically swaps — in-flight batches finish on the
+        old executor, new dispatches route to the new one, zero serving gap.
+
+        Past ``repair_drift_threshold`` (cumulative delta nnz vs. the nnz
+        at the last full tune) the update falls back to a **full re-tune**
+        of the mutated graph (measured sweep unless the store already holds
+        the answer), published through the same swap protocol.
+
+        An **evicted** graph updates host-side only (COO, histogram,
+        schedule, lineage); its next re-admission uploads the repaired
+        schedule fresh. Weights are untouched either way. Raises
+        ``UnknownGraphError`` for an unknown graph and ``ValueError`` for an
+        out-of-bounds delta (state unchanged)."""
+        rec = self._graphs.get(graph_id)
+        if rec is None:
+            raise UnknownGraphError(graph_id, "update_graph")
+        t0 = time.perf_counter()
+        new_coo, report = fmt.apply_edge_delta(rec.coo, delta, with_report=True)
+        per_row = rec.per_row
+        if report.touched_rows.size:
+            per_row = per_row.copy()
+            per_row[report.touched_rows] += report.row_nnz_delta
+        self._count("graph_updates")
+        rec.drift_nnz += report.n_added + report.n_removed + report.n_updated
+        drift = rec.drift_nnz / max(1, rec.orig_nnz)
+        with self._swap_lock:
+            revision = rec.revision + 1
+        lineage = registry.delta_fingerprint(rec.lineage, delta, revision)
+        if drift > self.repair_drift_threshold:
+            return self._retune_updated(rec, new_coo, per_row, drift, lineage, t0)
+        # a reordered graph repairs on its *permuted* side: the delta's
+        # rows compose with the admission permutation (``inv[old] = new``),
+        # the permuted COO twin absorbs it, and the repair sees the same
+        # row space the schedule was built in. Content fingerprint and
+        # lineage above stay on the original-order COO.
+        if rec.perm is not None:
+            pdelta = fmt.EdgeDelta(
+                rec.inv[fmt.to_numpy(delta.row).astype(np.int64)],
+                fmt.to_numpy(delta.col),
+                fmt.to_numpy(delta.val),
+            )
+            new_pcoo, preport = fmt.apply_edge_delta(rec.pcoo, pdelta, with_report=True)
+            touched = preport.touched_rows
+            per_row_old_s, per_row_new_s = rec.per_row[rec.perm], per_row[rec.perm]
+            repair_base = new_pcoo
+        else:
+            new_pcoo = None
+            touched = report.touched_rows
+            per_row_old_s, per_row_new_s = rec.per_row, per_row
+            repair_base = new_coo
+        p = self.placer.placement_of(graph_id)
+        patched = None
+        if report.n_added == 0 and report.n_removed == 0:
+            # pure value update: structure (hence slot layout) unchanged —
+            # the O(|delta|) lane patches just the affected ``val`` slots
+            if rec.slot_cache is None:
+                rec.slot_cache = slot_entry_keys(rec.sched)
+            rows, cols, vals = _dedup_value_delta(delta, rec.coo.shape[1])
+            if rec.perm is not None:
+                rows = rec.inv[rows]
+            patched = value_patch_schedule(rec.sched, rec.slot_cache, rows, cols, vals)
+        if patched is not None:
+            new_sched, slots = patched
+            with self._swap_lock:
+                resident = rec.executor is not None
+            unit = None
+            if resident:
+                unit = self._rebuilt_units(
+                    rec, p, lambda old_ex, _d: value_patched_executor(
+                        old_ex, new_sched, slots, new_sched.val[slots]))
+            revision = self._swap_in(
+                rec, unit, coo=new_coo, per_row=per_row, sched=new_sched,
+                fingerprint=None, lineage=lineage, keep_slot_cache=True, pcoo=new_pcoo)
+            self._enqueue_persist(rec, new_coo, rec.config, new_sched)
+            nw = new_sched.n_windows
+            return UpdateReport(
+                graph_id=graph_id,
+                repaired=True,
+                revision=revision,
+                fingerprint="",
+                lineage=lineage,
+                drift=drift,
+                nnz=int(new_coo.row.shape[0]),
+                update_seconds=time.perf_counter() - t0,
+                steps_reused=new_sched.n_steps,
+                windows_reused=nw,
+                windows_total=nw,
+                scoped_upload=unit is not None and unit.executor.scoped_upload,
+                fell_back=False,
+            )
+        new_sched, stats = repair_schedule(
+            rec.sched,
+            None,
+            repair_base,
+            touched,
+            per_row_old=per_row_old_s,
+            per_row_new=per_row_new_s,
+            **_geometry_kwargs(rec.config),
+        )
+        with self._swap_lock:
+            resident = rec.executor is not None
+        unit = None
+        if resident:
+            unit = self._rebuilt_units(
+                rec, p, lambda old_ex, _d: repaired_executor(old_ex, new_sched, stats))
+        revision = self._swap_in(rec, unit, coo=new_coo, per_row=per_row,
+                                 sched=new_sched, fingerprint=None, lineage=lineage,
+                                 pcoo=new_pcoo)
+        self._enqueue_persist(rec, new_coo, rec.config, new_sched)
+        return UpdateReport(
+            graph_id=graph_id,
+            repaired=True,
+            revision=revision,
+            fingerprint="",
+            lineage=lineage,
+            drift=drift,
+            nnz=int(new_coo.row.shape[0]),
+            update_seconds=time.perf_counter() - t0,
+            steps_reused=int(stats.steps_reused),
+            windows_reused=int(stats.windows_reused),
+            windows_total=int(stats.windows_total),
+            scoped_upload=unit is not None and unit.executor.scoped_upload,
+            fell_back=bool(stats.fell_back),
+        )
+
+    def _persist_entry(self, rec: _Resident, coo, fingerprint: str,
+                       cfg: TunedConfig, sched: Schedule,
+                       perm: Optional[np.ndarray]) -> None:
+        """File one schedule under the mutated graph's content fingerprint
+        (revision 0 — the key a fresh ``add_graph`` of this exact graph
+        computes), so a restart warm-starts the repaired state with zero
+        sweeps and zero rebuilds. The key names the device by its kind,
+        which the card reports from a cache after the engine's first store
+        key: the worker launches nothing and allocates nothing there."""
+        key = runner.store_key(self.store, fingerprint, rec.kdim, max_devices=1,
+                               device=self.devices[0], **self._autotune_kwargs)
+        self.store.save(key, cfg, sched, perm)
+
+    def _enqueue_persist(self, rec: _Resident, coo, cfg: TunedConfig,
+                         sched: Schedule) -> None:
+        """Queue the content fingerprint + store write of a just-swapped
+        revision for the background worker — both are O(nnz). The worker
+        also back-fills ``rec.fingerprint`` (under the swap lock) unless a
+        later revision swapped in first. The permutation is snapshotted
+        here — a later re-tune may replace ``rec.perm`` before the worker
+        runs, and the persisted schedule belongs with *this* one. The COO
+        goes as numpy views, so the worker runs no tensor code."""
+        coo = fmt.COO(*(fmt.to_numpy(x) for x in coo[:3]), coo.shape)
+        with self._swap_lock:
+            snapshot = (rec, coo, cfg, sched, rec.perm, rec.revision)
+        self._persist_q.put(snapshot)
+        with self._persist_spawn_lock:
+            if self._persist_thread is None:
+                t = threading.Thread(target=self._persist_worker, daemon=True)
+                self._persist_thread = t
+                t.start()
+
+    def _persist_worker(self) -> None:
+        """Drain the persist queue: numpy, the content fingerprint and the
+        store write only."""
+        while True:
+            try:
+                task = self._persist_q.get(timeout=5.0)
+            except queue_mod.Empty:
+                # idle: let the thread die; the next enqueue respawns it
+                with self._persist_spawn_lock:
+                    if self._persist_q.empty():
+                        self._persist_thread = None
+                        return
+                continue
+            rec, coo, cfg, sched, perm, revision = task
+            try:
+                with self._swap_lock:
+                    superseded = rec.revision != revision
+                if superseded:
+                    # a later update already swapped in and queued its own
+                    # persist — skip the stale snapshot
+                    continue
+                fp2 = registry.graph_fingerprint(coo)
+                self._persist_entry(rec, coo, fp2, cfg, sched, perm)
+                with self._swap_lock:
+                    if rec.revision == revision:
+                        rec.fingerprint = fp2
+            except Exception:
+                pass  # persistence is best-effort off the hot path
+            finally:
+                self._persist_q.task_done()
+
+    def drain_persists(self, timeout: float = 60.0) -> None:
+        """Block until every queued async schedule persist has completed
+        (the store then reflects the latest swapped revisions — what a
+        clean shutdown or a test wanting warm-restart guarantees calls)."""
+        q = self._persist_q
+        deadline = time.monotonic() + timeout
+        with q.all_tasks_done:
+            while q.unfinished_tasks:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise TimeoutError("async persist drain timed out")
+                q.all_tasks_done.wait(remaining)
+
+    def _retune_updated(self, rec: _Resident, new_coo, per_row, drift: float,
+                        lineage: str, t0: float) -> UpdateReport:
+        """The drift fallback: full re-tune of the mutated graph (store
+        warm-start when available), published through the same atomic
+        swap. Resets the drift accumulator — the new schedule is the new
+        baseline."""
+        self._count("update_retunes")
+        gid = rec.graph_id
+        dev = self.devices[0]
+        fp2 = registry.graph_fingerprint(new_coo)
+        tune_kw = self._autotune_kwargs
+        key = runner.store_key(self.store, fp2, rec.kdim, max_devices=1, device=dev,
+                               **tune_kw)
+        entry = self.store.load(key)
+        if entry is not None:
+            self._count("store_hits")
+            cfg, sched, perm2 = entry
+            self._check_route(gid, cfg, "stored")
+            registry.adopt_reorder(fp2, cfg.reorder, perm2)
+            perm2, inv2 = registry.get_reorder(new_coo, cfg.reorder, fingerprint=fp2)
+        else:
+            self._count("store_misses")
+            cfg = runner.autotune(
+                new_coo,
+                (new_coo.shape[1], rec.kdim),
+                max_devices=1,
+                store=self.store,
+                device=dev,
+                **tune_kw,
+            )
+            self._check_route(gid, cfg, "tuned")
+            sched = registry.get_schedule(new_coo, **cfg.as_schedule_kwargs(),
+                                          fingerprint=fp2)
+            perm2, inv2 = registry.get_reorder(new_coo, cfg.reorder, fingerprint=fp2)
+            registry.release_graph(fp2)
+        with self._swap_lock:
+            resident = rec.executor is not None
+        unit = None
+        if resident:
+            unit = self._rebuilt_units(
+                rec, self.placer.placement_of(gid),
+                lambda _old, d: self._fresh_executor(sched, cfg, d, inv2))
+        revision = self._swap_in(
+            rec,
+            unit,
+            coo=new_coo,
+            per_row=per_row,
+            sched=sched,
+            fingerprint=fp2,
+            lineage=fp2,
+            config=cfg,
+            reset_drift=True,
+            pcoo=None if perm2 is None else fmt.permute_coo(new_coo, perm2),
+            perm=perm2,
+            inv=inv2,
+        )
+        return UpdateReport(
+            graph_id=gid,
+            repaired=False,
+            revision=revision,
+            fingerprint=fp2,
+            lineage=lineage,
+            drift=drift,
+            nnz=int(new_coo.row.shape[0]),
+            update_seconds=time.perf_counter() - t0,
+        )
 
     # ---- residency / eviction ----------------------------------------------
 
@@ -1104,7 +1607,7 @@ class GCNServingEngine:
             ),
             latency_us_max=self._lat_max * 1e6,
             **self.latency_percentiles(),
-            replicas={},  # one device: no replicas (part 2)
+            replicas={},  # one device: no replicas
             per_device=self.placer.device_report(
                 extra={d: {"saturation_s": s} for d, s in sat.items()}
             ),

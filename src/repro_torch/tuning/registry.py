@@ -49,6 +49,23 @@ def graph_fingerprint(a: fmt.COO) -> str:
     return h.hexdigest()
 
 
+def delta_fingerprint(parent_fp: str, delta, revision: int) -> str:
+    """Chained identity of a streamed graph mutation: the parent's
+    fingerprint hashed with the repair generation and the edge delta's
+    bytes — the same string the JAX package computes. O(|delta|) instead of
+    the O(nnz) content hash: the streaming path's cheap lineage identity.
+    Two graphs reached by the same delta sequence share it; unlike
+    ``graph_fingerprint`` it is *not* content-canonical, so store entries
+    keep using the content hash."""
+    h = hashlib.blake2b(digest_size=16)
+    h.update(parent_fp.encode())
+    h.update(repr(int(revision)).encode())
+    h.update(fmt.to_numpy(delta.row).tobytes())
+    h.update(fmt.to_numpy(delta.col).tobytes())
+    h.update(fmt.to_numpy(delta.val).tobytes())
+    return h.hexdigest()
+
+
 _SCHEDULE_CACHE: dict = {}
 _EXECUTOR_CACHE: dict = {}
 _REORDER_CACHE: dict = {}

@@ -2,6 +2,8 @@
 card. Every test here needs a CUDA device and skips without one; run them
 on the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 This file imports no JAX, so it runs where only PyTorch is installed."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -290,3 +292,152 @@ def test_engine_warm_start_on_the_card(dev, tmp_path, monkeypatch):
     for x in xs:  # the same batches as the cold engine served
         eng2.submit("g", x, deadline_s=10.0)
     assert torch.equal(eng2.flush()["g"], out)
+
+
+# ---------------------------------------------------------------------------
+# streaming updates on the card: repaired and value-patched executors
+# ---------------------------------------------------------------------------
+
+
+def _update_case(n, seed):
+    """A graph, its schedule and executor on the card, a value patch and a
+    structural repair of it."""
+    from repro_torch.core import csc as tfmt
+
+    a = tsynth.power_law_adjacency(n, 0.01, 1.0, seed=seed)
+    rng = np.random.default_rng(seed)
+    sched = tsched.build_balanced_schedule(a, 64, 32)
+    row, col = tfmt.to_numpy(a.row), tfmt.to_numpy(a.col)
+    pick = rng.choice(row.shape[0], 16, replace=False)
+    vp, slots = tsched.value_patch_schedule(
+        sched, tsched.slot_entry_keys(sched), row[pick], col[pick],
+        (rng.random(16) + 0.5).astype(np.float32))
+    delta = tfmt.EdgeDelta(rng.integers(0, n, 24), rng.integers(0, n, 24),
+                           (rng.random(24) + 0.1).astype(np.float32))
+    new, rep = tfmt.apply_edge_delta(a, delta, with_report=True)
+    pro = np.bincount(row.astype(np.int64), minlength=n)
+    prn = pro.copy()
+    prn[rep.touched_rows] += rep.row_nnz_delta
+    rs, stats = tsched.repair_schedule(sched, None, new, rep.touched_rows,
+                                       per_row_old=pro, per_row_new=prn,
+                                       nnz_per_step=64, rows_per_window=32)
+    return sched, (vp, slots), (rs, stats)
+
+
+def test_streaming_executors_on_the_card(dev, monkeypatch):
+    monkeypatch.setattr(texe, "SCOPED_UPLOAD_MIN_BYTES", 0)
+    sched, (vp, slots), (rs, stats) = _update_case(4000, 11)
+    ex = texe.ScheduleExecutor(sched, device=dev)
+    before = [t.clone() for t in ex._steps[:5]]
+    b = torch.rand((4000, 64), device=dev)
+    for new_sched, make in (
+            (vp, lambda: texe.value_patched_executor(ex, vp, slots, vp.val[slots])),
+            (rs, lambda: texe.repaired_executor(ex, rs, stats))):
+        spmm_cuda.reset_launches()
+        new = make()
+        assert spmm_cuda.LAUNCHES["spmm_balanced"] == 0  # building launches nothing
+        cold = texe.ScheduleExecutor(dataclasses.replace(new_sched), device=dev)
+        for got, want in zip(new._steps[:5], cold._steps[:5]):
+            assert got.is_cuda and torch.equal(got, want)
+        assert new._steps.n_parts == cold._steps.n_parts
+        assert torch.equal(new.spmm(b), cold.spmm(b))
+        assert texe.device_step_arrays(new_sched, dev) is new._steps
+        assert all(torch.equal(t, c) for t, c in zip(ex._steps[:5], before))
+    vex = texe.value_patched_executor(ex, vp, slots, vp.val[slots])
+    assert vex.scoped_upload and vex._steps.slot_ptr is ex._steps.slot_ptr
+
+
+def test_streaming_executors_never_replan_on_the_card(dev, monkeypatch):
+    from repro_torch.core import csc as tfmt
+
+    monkeypatch.setattr(texe, "SCOPED_UPLOAD_MIN_BYTES", 0)
+    a = tsynth.power_law_adjacency(4000, 0.01, 1.0, seed=12)
+    sched = tsched.build_balanced_schedule(a, 64, 32)
+    ex = texe.ScheduleExecutor(sched, device=dev)
+    row, col = tfmt.to_numpy(a.row), tfmt.to_numpy(a.col)
+    r = int(row[0])
+    c1 = int(np.setdiff1d(np.arange(4000), col[row == r])[0])
+    delta = tfmt.EdgeDelta(np.array([r, r]), np.array([col[0], c1]),
+                           np.array([0.0, 0.75], np.float32))
+    new, rep = tfmt.apply_edge_delta(a, delta, with_report=True)
+    pr = np.bincount(row.astype(np.int64), minlength=4000)
+    rs, stats = tsched.repair_schedule(sched, None, new, rep.touched_rows,
+                                       per_row_old=pr, per_row_new=pr,
+                                       nnz_per_step=64, rows_per_window=32)
+    vp, slots = tsched.value_patch_schedule(sched, tsched.slot_entry_keys(sched),
+                                            row[1:3], col[1:3],
+                                            np.array([2.0, 3.0], np.float32))
+    monkeypatch.setattr(spmm_cuda, "kernel_plan", lambda s: pytest.fail("re-planned"))
+    rex = texe.repaired_executor(ex, rs, stats)
+    assert rex.scoped_upload
+    vex = texe.value_patched_executor(ex, vp, slots, vp.val[slots])
+    assert vex.scoped_upload
+    b = torch.rand((4000, 16), device=dev)
+    for e, s in ((rex, rs), (vex, vp)):
+        gold = tspmm.spmm_coo(_sched_coo(s), b)
+        assert float((e.spmm(b) - gold).abs().max()) <= _tol(gold, torch.float32)
+
+
+def _sched_coo(sched):
+    """The matrix a schedule encodes, as a COO on the card."""
+    from repro_torch.core import csc as tfmt
+
+    k, r, cb = sched.nnz_per_step, sched.rows_per_window, sched.cols_per_block
+    keep = sched.val != 0
+    slot = np.repeat(sched.win_id.astype(np.int64), k) * r + sched.local_row
+    row = sched.row_map[slot][keep]
+    col = (np.repeat(sched.col_block.astype(np.int64), k) * cb + sched.local_col)[keep]
+    return tfmt.coo_from_arrays(row, col, sched.val[keep], sched.shape)
+
+
+def test_engine_update_chain_on_the_card(dev, tmp_path):
+    import gc
+
+    from repro_torch.core import csc as tfmt
+    from repro_torch.serving.gcn_engine import GCNServingEngine
+
+    n = 3000
+    a = tsynth.power_law_adjacency(n, 0.005, 1.0, seed=13)
+    rng = np.random.default_rng(13)
+    params = tgcn.params_from_jax({
+        "w0": rng.uniform(-0.3, 0.3, (32, 16)).astype(np.float32),
+        "w1": rng.uniform(-0.3, 0.3, (16, 5)).astype(np.float32)}, dev)
+    x = torch.rand((n, 32), device=dev)
+    kw = dict(iters=1, warmup=1, bf16_report=False, sweep=[dict(
+        nnz_per_step=64, rows_per_window=32, cols_per_block=None, window_nnz=None,
+        routing="gather")])
+    # cuBLAS takes its workspace (32 MiB) from the allocator at the first
+    # product on this stream: take it before the baseline
+    torch.relu(x @ params["w0"]) @ params["w1"]
+    torch.cuda.synchronize()
+    gc.collect()
+    base = torch.cuda.memory_allocated(dev)
+    eng = GCNServingEngine(store_root=tmp_path, autotune_kwargs=kw)
+    eng.add_graph("g", a, params)
+    eng.infer("g", x)
+    for i in range(6):
+        coo = eng._graphs["g"].coo
+        row, col = tfmt.to_numpy(coo.row), tfmt.to_numpy(coo.col)
+        if i % 2 == 0:
+            pick = rng.choice(row.shape[0], 8, replace=False)
+            delta = tfmt.EdgeDelta(row[pick], col[pick],
+                                   (rng.random(8) + 0.5).astype(np.float32))
+        else:
+            delta = tfmt.EdgeDelta(rng.integers(0, n, 8), rng.integers(0, n, 8),
+                                   (rng.random(8) + 0.1).astype(np.float32))
+        rep = eng.update_graph("g", delta)
+        assert rep.repaired and not rep.fell_back
+        assert rep.scoped_upload or i % 2 == 1
+    got = eng.infer("g", x)
+    rec = eng._graphs["g"]
+    gold = tgcn.forward(params, rec.coo._replace(
+        row=rec.coo.row.to(dev), col=rec.coo.col.to(dev), val=rec.coo.val.to(dev)), x)
+    assert float((got - gold).abs().max()) <= _tol(gold, torch.float32)
+    eng.drain_persists()
+    del got, gold
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev) - base
+    # the engine's accounting, up to the allocator's rounding
+    assert abs(held - eng.device_bytes_in_use) <= (1 << 20), (
+        held, eng.device_bytes_in_use)
