@@ -89,6 +89,24 @@ Builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    (zero sweeps, zero builds) with bit-equal logits. On pubmed, an engine
    with ``repair_drift_threshold=1e-9`` re-tunes on its first update, within
    tolerance of the plain forward.
+8. Trains the GCN on reddit through ``spmm_cuda.make_spmm_fn`` (the kernels
+   on A's schedule forward and on Aᵀ's backward; both built and uploaded, and
+   timed, first), from phase 2's weights on the dataset's teacher labels.
+   The loss's gradients through the kernels are held against the same
+   function with the kernels' plain versions and against autograd through
+   the plain COO product. Then ``TRAIN_STEPS`` AdamW steps
+   (``TRAIN_ADAMW``, f32 working weights) through the kernels, with launch
+   counts reset just before and read after: every step launches each kernel
+   twice forward and twice backward, plans and uploads no schedule after
+   step 1, and the loss falls; the same steps through the COO product stay
+   within the f32 tolerance of it, step by step. The state at step
+   ``TRAIN_SAVE_AT`` is saved by the async ``CheckpointManager`` under
+   ``build/``, restored onto the card into a fresh template, and the resumed
+   steps must reproduce the uninterrupted run's losses and state bit for
+   bit; a second restore must give back the saved arrays. Times the steps
+   (forward, backward, optimizer), the COO steps, and the two kernels on
+   Aᵀ at the backward's widths (128, 41) beside their plain versions and
+   ``torch.sparse.mm`` on Aᵀ in CSR (a yardstick the port never calls).
 
 Float32 matmuls and cuDNN run without TF32 (both flags are set False), so
 every float32 product is full float32. Tolerances, each scaled by
@@ -103,7 +121,9 @@ it fails if one spills or issues no ``HMMA``), a ``{"kernels": [...]}``
 line, a ``{"serving": ...}`` line, a ``{"lm_serving": ...}`` line, the
 window kernel's all-gathers-miss bound per kdim, the flash kernel's bounds
 (``flash_bounds``), an ``{"engine_serving": ...}`` line, an
-``{"engine_streaming": ...}`` line, the card's name and power limit, and as
+``{"engine_streaming": ...}`` line, a ``{"gcn_training": ...}`` line (the
+kernels line names phase 8's Aᵀ entries ``...@AT``), the card's name and
+power limit, and as
 its last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device, or without the rest of the repository, it exits
@@ -151,6 +171,11 @@ BATCHES, BATCH_SIZE, KEEP, STEADY_S = 3, 4, 0.9, 2.0
 #: chain under concurrent serving, the wide delta's edges, the drift graph
 STREAM_EDGES, STREAM_SEED, STREAM_WARMUP, STREAM_TIMED = 16, 4321, 4, 16
 STREAM_CHAIN, STREAM_WIDE, DRIFT_GRAPH = 8, 4096, "pubmed"
+#: phase 8: AdamW steps through the kernels (and through the COO product),
+#: the step whose state is checkpointed and resumed from, and the optimizer's
+#: settings (the JAX package's GCN training test's)
+TRAIN_STEPS, TRAIN_SAVE_AT = 20, 10
+TRAIN_ADAMW = dict(lr=0.05, warmup_steps=5, total_steps=60, weight_decay=0.0)
 # the window kernel's lane mappings timed beside the one it picks, per kdim:
 # (vec, lanes a step, vectors a lane); reddit's B of f32 rows
 LANE_SWEEP = {512: [(4, 16, 1), (4, 32, 1), (4, 32, 4)],
@@ -425,11 +450,107 @@ def kernel_registers() -> dict:
     return regs
 
 
+def spmm_rows(steps, a_csr, b, ktile, what=""):
+    """The window and epilogue kernels on ``steps`` at operand ``b``: each
+    held against its plain version, the kernels' product against the
+    library's, ``spmm_balanced`` against itself (two calls, bit-equal);
+    then timed beside their plain versions, ``spmm_balanced`` and the
+    library calls (``torch.sparse.mm`` on ``a_csr``; ``index_add_`` of the
+    kept partials for the epilogue), with CUDA events, in turns. Returns the
+    window's and the epilogue's rows (ms per call) and the window's lane
+    mapping."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import spmm_cuda
+
+    dev = b.device
+    m, n = steps.shape
+    kdim = b.shape[1]
+    # multiplies this run's data needs: padding slots (val 0) are skipped
+    n_nnz = int((steps.slots[:, 1] != 0).sum())
+    n_kept = int(steps.epi_part.numel())
+    part_row = torch.full((steps.n_parts,), -1, dtype=torch.long, device=dev)
+    part_row[steps.epi_part.long()] = torch.repeat_interleave(
+        torch.arange(m, device=dev), steps.epi_ptr.diff().long())
+    kept = part_row >= 0
+    part_k = spmm_cuda.spmm_window(steps, b, ktile=ktile)
+    part_p = spmm_cuda.spmm_window_plain(steps, b)
+    err_w = check(f"{what}spmm_window k={kdim}", part_k, part_p, torch.float32)
+    epi_k = spmm_cuda.spmm_epilogue(steps, part_p, torch.float32)
+    epi_p = spmm_cuda.spmm_epilogue_plain(steps, part_p, torch.float32)
+    err_e = check(f"{what}spmm_epilogue k={kdim}", epi_k, epi_p, torch.float32)
+    lib = torch.sparse.mm(a_csr, b)
+    check(f"{what}sparse.mm vs kernels k={kdim}", epi_k, lib, torch.float32)
+    first = spmm_cuda.spmm_balanced(steps, b, ktile=ktile)
+    if not torch.equal(first, spmm_cuda.spmm_balanced(steps, b, ktile=ktile)):
+        raise AssertionError(f"{what}spmm_balanced k={kdim}: two calls differ")
+    del part_k, epi_k, lib, first
+    # library and kernels in turns: sparse.mm, spmm_balanced, the two
+    # kernels apart, then spmm_balanced and sparse.mm again
+    lib_ms = [timed_ms(lambda: torch.sparse.mm(a_csr, b), 10)]
+    bal_ms = [timed_ms(lambda: spmm_cuda.spmm_balanced(steps, b, ktile=ktile), 10)]
+    w_ms = timed_ms(lambda: spmm_cuda.spmm_window(steps, b, ktile=ktile), 10)
+    e_ms = timed_ms(lambda: spmm_cuda.spmm_epilogue(steps, part_p, torch.float32), 10)
+    bal_ms.append(timed_ms(lambda: spmm_cuda.spmm_balanced(steps, b, ktile=ktile), 10))
+    lib_ms.append(timed_ms(lambda: torch.sparse.mm(a_csr, b), 10))
+    wp_ms = timed_ms(lambda: spmm_cuda.spmm_window_plain(steps, b), 2)
+    ep_ms = timed_ms(
+        lambda: spmm_cuda.spmm_epilogue_plain(steps, part_p, torch.float32), 3)
+    tgt, src = part_row[kept], part_p[kept]
+    e_lib = timed_ms(
+        lambda: torch.zeros((m, kdim), device=dev).index_add_(0, tgt, src), 10)
+    del part_p, src
+    w_bytes = bytes_window(steps, n, kdim, 4)
+    w_ops_ms = 2 * n_nnz * kdim / PEAK_F32_FLOPS * 1e3
+    e_bytes = n_kept * kdim * 4 + (m + 1 + n_kept) * 4 + m * kdim * 4
+    window = {
+        "kdim": kdim, "max_abs_err": err_w,
+        "ms": w_ms, "plain_ms": wp_ms, "library_ms": float(np.mean(lib_ms)),
+        "balanced_ms": float(np.mean(bal_ms)), "balanced_runs_ms": bal_ms,
+        "library_runs_ms": lib_ms,
+        "bound_ms": max(w_bytes / PEAK_BYTES_PER_S * 1e3, w_ops_ms),
+        "bound_by": "bytes" if w_bytes / PEAK_BYTES_PER_S * 1e3 >= w_ops_ms
+        else "operations",
+    }
+    epilogue = {
+        "kdim": kdim, "max_abs_err": err_e,
+        "ms": e_ms, "plain_ms": ep_ms, "library_ms": e_lib,
+        "bound_ms": e_bytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
+    }
+    return window, epilogue, spmm_cuda.lane_mapping(kdim, b.dtype, rows=n)
+
+
+def kernel_entries(rows, launches, per, suffix=""):
+    """``{"kernels": [...]}`` entries of the window and epilogue kernels from
+    their rows: each time summed over the rows on the main path."""
+    import numpy as np
+
+    from repro_torch.kernels import spmm_cuda
+
+    kernels = []
+    for name, shapes in rows.items():
+        main = [s for s in shapes if s["main_path"]]
+        entry = {
+            "name": name + suffix, "route": "cuda", "source": spmm_cuda.SOURCE,
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": max(s["max_abs_err"] for s in shapes),
+            "bound_by": "bytes" if all(s["bound_by"] == "bytes" for s in main)
+            else "operations",
+            "per": per,
+        }
+        keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+        for key in keys + (("balanced_ms",) if name == "spmm_balanced" else ()):
+            entry[key] = float(np.sum([s[key] for s in main]))
+        entry["shapes"] = shapes
+        kernels.append(entry)
+    return kernels
+
+
 def phase_kernels(ds, ex, launches):
     """Each kernel vs its plain version and the library call at the main
     path's shapes (batched: 4 requests × 128 and × 41 columns) and at one
     request's (128 and 41); times in ms per call."""
-    import numpy as np
     import torch
 
     from repro_torch.kernels import spmm_cuda
@@ -438,13 +559,6 @@ def phase_kernels(ds, ex, launches):
     steps = ex._steps
     m, n = ds.adj.shape
     geometry = schedule_geometry(ex.sched, steps)
-    # multiplies this run's data needs: padding slots (val 0) are skipped
-    n_nnz = int((steps.slots[:, 1] != 0).sum())
-    n_kept = int(steps.epi_part.numel())
-    part_row = torch.full((steps.n_parts,), -1, dtype=torch.long, device=dev)
-    part_row[steps.epi_part.long()] = torch.repeat_interleave(
-        torch.arange(m, device=dev), steps.epi_ptr.diff().long())
-    kept = part_row >= 0
     csr = ds.adj_csr
     a_csr = torch.sparse_csr_tensor(
         csr.indptr.long(), csr.indices.long(), csr.data, size=(m, n)
@@ -455,84 +569,25 @@ def phase_kernels(ds, ex, launches):
     main_widths = (BATCH_SIZE * ds.hidden, BATCH_SIZE * ds.num_classes)
     for kdim in main_widths + (ds.hidden, ds.num_classes):
         b = torch.randn((n, kdim), generator=gen, device=dev)
-        part_k = spmm_cuda.spmm_window(steps, b, ktile=ex.ktile)
-        part_p = spmm_cuda.spmm_window_plain(steps, b)
-        err_w = check(f"spmm_window k={kdim}", part_k, part_p, torch.float32)
-        epi_k = spmm_cuda.spmm_epilogue(steps, part_p, torch.float32)
-        epi_p = spmm_cuda.spmm_epilogue_plain(steps, part_p, torch.float32)
-        err_e = check(f"spmm_epilogue k={kdim}", epi_k, epi_p, torch.float32)
-        lib = torch.sparse.mm(a_csr, b)
-        check(f"sparse.mm vs kernels k={kdim}", epi_k, lib, torch.float32)
-        first = spmm_cuda.spmm_balanced(steps, b, ktile=ex.ktile)
-        if not torch.equal(first, spmm_cuda.spmm_balanced(steps, b, ktile=ex.ktile)):
-            raise AssertionError(f"spmm_balanced k={kdim}: two calls differ")
-        del part_k, epi_k, lib, first
-        # library and kernels in turns: sparse.mm, spmm_balanced, the two
-        # kernels apart, then spmm_balanced and sparse.mm again
-        lib_ms = [timed_ms(lambda: torch.sparse.mm(a_csr, b), 10)]
-        bal_ms = [timed_ms(lambda: spmm_cuda.spmm_balanced(steps, b, ktile=ex.ktile),
-                           10)]
-        w_ms = timed_ms(lambda: spmm_cuda.spmm_window(steps, b, ktile=ex.ktile), 10)
-        e_ms = timed_ms(lambda: spmm_cuda.spmm_epilogue(steps, part_p, torch.float32),
-                        10)
-        bal_ms.append(timed_ms(
-            lambda: spmm_cuda.spmm_balanced(steps, b, ktile=ex.ktile), 10))
-        lib_ms.append(timed_ms(lambda: torch.sparse.mm(a_csr, b), 10))
-        wp_ms = timed_ms(lambda: spmm_cuda.spmm_window_plain(steps, b), 2)
-        ep_ms = timed_ms(
-            lambda: spmm_cuda.spmm_epilogue_plain(steps, part_p, torch.float32), 3)
-        tgt, src = part_row[kept], part_p[kept]
-        e_lib = timed_ms(
-            lambda: torch.zeros((m, kdim), device=dev).index_add_(0, tgt, src), 10)
-        del part_p, src
-        chosen = spmm_cuda.lane_mapping(kdim, b.dtype, rows=n)
-        lane_ms = {str(chosen): w_ms}
+        window, epilogue, chosen = spmm_rows(steps, a_csr, b, ex.ktile)
+        lane_ms = {str(chosen): window["ms"]}
         for vec, gw, nc in LANE_SWEEP[kdim]:
             mapping = (vec, gw, nc, -(-kdim // (vec * gw * nc)))
             lane_ms[str(mapping)] = timed_ms(
                 lambda: spmm_cuda._window(steps, b, mapping), 10)
-        w_bytes = bytes_window(steps, n, kdim, 4)
         w_miss = bytes_window(steps, n, kdim, 4, all_miss=True)
-        w_ops_ms = 2 * n_nnz * kdim / PEAK_F32_FLOPS * 1e3
         all_miss[str(kdim)] = w_miss / PEAK_BYTES_PER_S * 1e3
-        e_bytes = n_kept * kdim * 4 + (m + 1 + n_kept) * 4 + m * kdim * 4
         vec, gw, nc, panels = chosen
         lanes[str(kdim)] = {"vec": vec, "group": gw, "vectors": nc, "panels": panels,
                             "idle_share": 1 - kdim // vec / (panels * gw * nc)}
-        rows["spmm_balanced"].append({
-            "kdim": kdim, "main_path": kdim in main_widths, "max_abs_err": err_w,
-            "ms": w_ms, "plain_ms": wp_ms, "library_ms": float(np.mean(lib_ms)),
-            "balanced_ms": float(np.mean(bal_ms)), "balanced_runs_ms": bal_ms,
-            "library_runs_ms": lib_ms,
-            "bound_ms": max(w_bytes / PEAK_BYTES_PER_S * 1e3, w_ops_ms),
-            "bound_by": "bytes" if w_bytes / PEAK_BYTES_PER_S * 1e3 >= w_ops_ms
-            else "operations",
-            "lane_sweep_ms": lane_ms,
-        })
-        rows["spmm_epilogue"].append({
-            "kdim": kdim, "main_path": kdim in main_widths, "max_abs_err": err_e,
-            "ms": e_ms, "plain_ms": ep_ms, "library_ms": e_lib,
-            "bound_ms": e_bytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        })
+        rows["spmm_balanced"].append({**window, "main_path": kdim in main_widths,
+                                      "lane_sweep_ms": lane_ms})
+        rows["spmm_epilogue"].append({**epilogue, "main_path": kdim in main_widths})
         del b
         torch.cuda.empty_cache()
-    kernels = []
-    for name, shapes in rows.items():
-        main = [s for s in shapes if s["main_path"]]
-        # per forward_batch call: one launch of each kernel per layer
-        entry = {
-            "name": name, "route": "cuda", "source": spmm_cuda.SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": max(s["max_abs_err"] for s in shapes),
-            "bound_by": "bytes" if all(s["bound_by"] == "bytes" for s in main)
-            else "operations",
-            "per": "one forward_batch of 4 requests (both layers)",
-        }
-        keys = ("ms", "plain_ms", "bound_ms", "library_ms")
-        for key in keys + (("balanced_ms",) if name == "spmm_balanced" else ()):
-            entry[key] = float(np.sum([s[key] for s in main]))
-        entry["shapes"] = shapes
-        kernels.append(entry)
+    # per forward_batch call: one launch of each kernel per layer
+    kernels = kernel_entries(rows, launches,
+                             "one forward_batch of 4 requests (both layers)")
     return kernels, all_miss, lanes, geometry
 
 
@@ -1236,6 +1291,230 @@ def phase_streaming(dev, ds, store):
     }
 
 
+def phase_training(dev, ds):
+    """GCN training on reddit through ``spmm_cuda.make_spmm_fn``: forward on
+    A's schedule, backward on Aᵀ's; see the module docstring's phase 8.
+    Returns the ``gcn_training`` record and the Aᵀ kernels' entries of the
+    kernels line."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import csc as fmt
+    from repro_torch.core import executor, gcn
+    from repro_torch.kernels import spmm_cuda
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.checkpoint import CheckpointManager
+    from repro_torch.training.tree import flatten_with_paths
+    from repro_torch.tuning import registry
+
+    registry.clear_caches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # every schedule planned or uploaded in this phase, in order
+    planned = []
+    real_plan, real_upload = spmm_cuda.kernel_plan, executor._upload_plan
+
+    def counted_plan(sched):
+        planned.append(("plan", sched.shape))
+        return real_plan(sched)
+
+    def counted_upload(plan, shape, device):
+        planned.append(("upload", shape))
+        return real_upload(plan, shape, device)
+
+    spmm_cuda.kernel_plan, executor._upload_plan = counted_plan, counted_upload
+    ckpt_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=ROOT / "build"))
+    mgr = CheckpointManager(ckpt_dir, keep=2, async_write=True)
+    try:
+        # -- the schedules: A's (as phase 2 built it), then Aᵀ's ------------
+        t0 = time.perf_counter()
+        registry.get_schedule(ds.adj)
+        build_a_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        f = spmm_cuda.make_spmm_fn(ds.adj)
+        build_at_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        steps_a = f.device_steps(False, dev)
+        torch.cuda.synchronize()
+        upload_a_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        steps_t = f.device_steps(True, dev)
+        torch.cuda.synchronize()
+        upload_at_s = time.perf_counter() - t0
+        geometry = {"A": schedule_geometry(f.sched, steps_a),
+                    "AT": schedule_geometry(f.sched_t, steps_t)}
+        cfg = gcn.GCNConfig(ds.num_features, ds.hidden, ds.num_classes)
+        params0 = gcn.params_from_jax(glorot(cfg.dims, seed=0), dev)
+        x = torch.from_numpy(ds.features).to(dev)
+        labels = torch.from_numpy(ds.labels).to(dev)
+        adj = coo_on(ds.adj, dev)
+        ocfg = opt.AdamWConfig(**TRAIN_ADAMW)
+
+        def loss_grads(params, spmm_fn, events=None):
+            p = {k: v.detach().requires_grad_() for k, v in params.items()}
+            loss = gcn.loss_fn(p, adj, x, labels, spmm_fn=spmm_fn)
+            fwd = dict(spmm_cuda.LAUNCHES)
+            if events:
+                events[1].record()
+            grads = torch.autograd.grad(loss, list(p.values()))
+            return loss.detach(), dict(zip(p, grads)), fwd
+
+        # -- gradients: kernels vs plain versions vs the COO product ---------
+        plain = spmm_cuda.make_spmm_fn(ds.adj, schedules=(f.sched, f.sched_t),
+                                       backend="torch")
+        loss_k, g_k, _ = loss_grads(params0, f)
+        loss_p, g_p, _ = loss_grads(params0, plain)
+        loss_c, g_c, _ = loss_grads(params0, None)
+        grad_err = {"plain": 0.0, "coo": 0.0}
+        for k in g_k:
+            for route, gold in (("plain", g_p[k]), ("coo", g_c[k])):
+                grad_err[route] = max(grad_err[route], check(
+                    f"d{k} vs {route}", g_k[k], gold, torch.float32))
+        loss_err = max(check("loss vs plain", loss_k, loss_p, torch.float32),
+                       check("loss vs COO", loss_k, loss_c, torch.float32))
+        del g_p, g_c, plain
+
+        # -- 20 AdamW steps through the kernels, checkpointed at step 10 ------
+        def run(params, state, spmm_fn, first, last, save=False):
+            losses, split, host_ms, launches = [], [], [], []
+            for i in range(first, last + 1):
+                before, n_planned = dict(spmm_cuda.LAUNCHES), len(planned)
+                events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                events[0].record()
+                loss, grads, fwd = loss_grads(params, spmm_fn, events)
+                events[2].record()
+                params, state, _ = opt.adamw_update(ocfg, grads, state,
+                                                    param_dtype=torch.float32)
+                events[3].record()
+                torch.cuda.synchronize()
+                host_ms.append((time.perf_counter() - t0) * 1e3)
+                split.append([events[j].elapsed_time(events[j + 1]) for j in range(3)])
+                losses.append(float(loss))
+                after = spmm_cuda.LAUNCHES
+                launches.append({n: (fwd[n] - before[n], after[n] - fwd[n])
+                                 for n in F32_SPMM})
+                if i > 1 and len(planned) != n_planned:
+                    raise AssertionError(f"step {i} planned or uploaded a schedule: "
+                                         f"{planned[n_planned:]}")
+                if save and i == TRAIN_SAVE_AT:
+                    t0 = time.perf_counter()
+                    mgr.save(i, (params, state), block=False)
+                    save_s = time.perf_counter() - t0
+                    saved = {k: v.cpu().numpy() for k, v in
+                             flatten_with_paths((params, state)).items()}
+            out = {"params": params, "state": state, "losses": losses,
+                   "split": split, "host_ms": host_ms, "launches": launches}
+            if save:
+                out.update(saved=saved, save_s=save_s)
+            return out
+
+        spmm_cuda.reset_launches()
+        main = run(params0, opt.adamw_init(params0), f, 1, TRAIN_STEPS, save=True)
+        launches = dict(spmm_cuda.LAUNCHES)
+        for name in F32_SPMM:
+            if launches[name] == 0:
+                raise AssertionError(f"phase 8 never launched {name}")
+            for i, step in enumerate(main["launches"], 1):
+                if step[name] != (2, 2):
+                    raise AssertionError(f"step {i} launched {name} {step[name]} "
+                                         "times (forward, backward); want (2, 2)")
+        losses = main["losses"]
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"the loss did not fall: {losses}")
+        coo = run(params0, opt.adamw_init(params0), None, 1, TRAIN_STEPS)
+        loss_diff = []
+        for i, (lk, lc) in enumerate(zip(losses, coo["losses"]), 1):
+            loss_diff.append(check(f"step {i} loss vs COO", torch.tensor(lk),
+                                   torch.tensor(lc), torch.float32))
+
+        # -- resume from the step-10 checkpoint -------------------------------
+        t0 = time.perf_counter()
+        mgr.wait()
+        wait_s = time.perf_counter() - t0
+        template = {k: torch.zeros_like(v) for k, v in params0.items()}
+        template = (template, opt.adamw_init(template))
+        t0 = time.perf_counter()
+        (rparams, rstate), meta = mgr.restore(template)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if meta["step"] != TRAIN_SAVE_AT or int(rstate["count"]) != TRAIN_SAVE_AT:
+            raise AssertionError(
+                f"restored step {meta['step']}, count {int(rstate['count'])}")
+        resumed = run(rparams, rstate, f, TRAIN_SAVE_AT + 1, TRAIN_STEPS)
+        if resumed["losses"] != losses[TRAIN_SAVE_AT:]:
+            raise AssertionError(f"resumed losses {resumed['losses']} differ from "
+                                 f"{losses[TRAIN_SAVE_AT:]}")
+        for k, v in flatten_with_paths((main["params"], main["state"])).items():
+            got = flatten_with_paths((resumed["params"], resumed["state"]))[k]
+            if not torch.equal(got, v):
+                raise AssertionError(
+                    f"resumed {k} differs from the uninterrupted run's")
+        again, _ = mgr.restore(template)
+        for k, v in flatten_with_paths(again).items():
+            if not np.array_equal(v.cpu().numpy(), main["saved"][k]):
+                raise AssertionError(
+                    f"checkpoint array {k} differs from what was saved")
+
+        # -- the Aᵀ kernels at the backward's widths --------------------------
+        m, n = ds.adj.shape
+        csr_t = fmt.csr_from_coo(fmt.transpose_coo(ds.adj))
+        at_csr = torch.sparse_csr_tensor(
+            csr_t.indptr.long(), csr_t.indices.long(), csr_t.data, size=(n, m)).to(dev)
+        gen = torch.Generator(device=dev).manual_seed(8)
+        rows = {"spmm_balanced": [], "spmm_epilogue": []}
+        for kdim in (ds.hidden, ds.num_classes):
+            b = torch.randn((m, kdim), generator=gen, device=dev)
+            window, epilogue, _ = spmm_rows(steps_t, at_csr, b, f.ktile, what="Aᵀ ")
+            rows["spmm_balanced"].append({**window, "main_path": True})
+            rows["spmm_epilogue"].append({**epilogue, "main_path": True})
+            del b
+        bwd_launches = {name: sum(s[name][1] for s in main["launches"])
+                        for name in F32_SPMM}
+        kernels = kernel_entries(rows, bwd_launches,
+                                 "one training step's backward (both layers)", "@AT")
+        del at_csr, steps_a, steps_t, f, x, adj
+    finally:
+        spmm_cuda.kernel_plan, executor._upload_plan = real_plan, real_upload
+        mgr.close()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    registry.clear_caches()
+    torch.cuda.empty_cache()
+
+    def mean_split(run_):
+        steady = np.array(run_["split"][1:])
+        return {"forward_ms": float(steady[:, 0].mean()),
+                "backward_ms": float(steady[:, 1].mean()),
+                "optimizer_ms": float(steady[:, 2].mean()),
+                "device_ms": float(steady.sum(axis=1).mean()),
+                "host_ms": float(np.mean(run_["host_ms"][1:])),
+                "first_step_host_ms": run_["host_ms"][0]}
+
+    record = {
+        "graph": ds.name, "nodes": ds.num_nodes, "features": ds.num_features,
+        "hidden": ds.hidden, "classes": ds.num_classes, "steps": TRAIN_STEPS,
+        "adamw": TRAIN_ADAMW, "param_dtype": "float32", "schedule": geometry,
+        "build_a_s": build_a_s, "build_at_s": build_at_s,
+        "upload_a_s": upload_a_s, "upload_at_s": upload_at_s,
+        "grad_max_abs_err": grad_err, "loss_max_abs_err": loss_err,
+        "losses": losses, "coo_losses": coo["losses"],
+        "loss_vs_coo_max_abs_diff": max(loss_diff),
+        "step": mean_split(main), "coo_step": mean_split(coo),
+        "launches": launches, "launches_per_step": main["launches"][0],
+        "planned_or_uploaded_after_step_1": 0,
+        "planned_before_the_steps": [list(p) for p in planned],
+        "checkpoint": {"step": TRAIN_SAVE_AT, "save_s": main["save_s"],
+                       "wait_s": wait_s, "restore_s": restore_s,
+                       "resumed_losses_equal": True, "resumed_state_equal": True,
+                       "arrays_equal": True},
+    }
+    return record, kernels
+
+
 def serve_requests(eng, reqs):
     """Submit ``reqs`` to reddit with deadlines, collect every batch (the
     ``max_batch`` threshold flushes them) and return the logits in order."""
@@ -1619,7 +1898,13 @@ def main() -> int:
     streaming = phase_streaming(dev, ds, store)
     print(f"[phase 7] streamed updates into reddit in {time.perf_counter() - t0:.1f} s",
           file=sys.stderr)
+    t0 = time.perf_counter()
+    training, at_kernels = phase_training(dev, ds)
+    print(f"[phase 8] trained on reddit ({TRAIN_STEPS} steps, resumed from step "
+          f"{TRAIN_SAVE_AT}) in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     del ds
+    training["card"] = card
+    kernels.extend(at_kernels)
     streaming["card"] = card
     for entry in bf16acc:
         entry["launches"] = engine_launches[entry["name"]]
@@ -1638,6 +1923,7 @@ def main() -> int:
     print(json.dumps({"lm_serving": lm}))
     print(json.dumps({"engine_serving": engine}))
     print(json.dumps({"engine_streaming": streaming}))
+    print(json.dumps({"gcn_training": training}))
     # the window kernel's bound if every gathered B row came from HBM, per kdim
     print(json.dumps({"spmm_balanced_bound_all_miss_ms": all_miss}))
     # the flash kernel's bounds at the prefill shape: tensor cores (3xTF32 in

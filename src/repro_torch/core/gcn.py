@@ -8,6 +8,11 @@ JAX package leaves it to XLA.
 
 Parameters are a dict ``{"w0": [f, h], "w1": [h, c], ...}`` of tensors, the
 JAX package's layout, so ``params_from_jax`` takes its weights as they are.
+
+Training differentiates ``loss_fn`` with an ``spmm_fn`` that autograd can go
+through: the plain COO product (the default), ``make_schedule_spmm``, or
+``spmm_cuda.make_spmm_fn`` (the kernels, with Aᵀ's schedule for the
+backward). The executor serves inference only and records no graph.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ from torch import nn
 
 from repro_torch.core import csc as fmt
 from repro_torch.core import spmm
-from repro_torch.core.schedule import Schedule
+from repro_torch.core.schedule import Schedule, execute_schedule_torch
 from repro_torch.device import resolve_device
 
 
@@ -77,6 +82,13 @@ def forward(params: dict, a: fmt.COO, x: torch.Tensor,
         if i < n_layers - 1:
             h = torch.relu(h)
     return h
+
+
+def make_schedule_spmm(sched: Schedule) -> Callable:
+    """``spmm_fn`` over the plain tensor executor of ``sched``, which
+    autograd differentiates (``spmm_cuda.make_spmm_fn`` is the kernels'
+    differentiable counterpart)."""
+    return functools.partial(execute_schedule_torch, sched)
 
 
 def forward_awb(params: dict, a: fmt.COO, x: torch.Tensor,

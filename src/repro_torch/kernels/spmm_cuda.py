@@ -20,6 +20,8 @@ live slots and first partial, and the epilogue's CSR. Only these are
 uploaded (``DeviceSteps``); the plain versions read the same records.
 After a streaming update, ``splice_plan`` and ``value_patch_plan`` derive
 the new plan from the old one, planning only the steps that changed.
+``make_spmm_fn`` makes the product differentiable in B: its backward runs the
+same two kernels on a schedule built for Aᵀ.
 ``lane_mapping`` picks the lanes' layout from kdim, dtype and B's size.
 
 ``acc_dtype=torch.bfloat16`` selects the kernels' bf16-accumulate variant,
@@ -42,6 +44,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import csc as fmt
 from repro_torch.core.schedule import Schedule
 from repro_torch.core.spmm import GATHER_ELEMS
 from repro_torch.kernels import _build
@@ -502,3 +505,102 @@ def spmm_balanced_plain(sched_or_steps, b: torch.Tensor, *,
     steps = _steps_for(sched_or_steps, b.device)
     part = spmm_window_plain(steps, b, acc_dtype=acc_dtype)
     return spmm_epilogue_plain(steps, part, b.dtype, row_unperm, acc_dtype=acc_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Differentiable wrapper: d(A@B)/dB = Aᵀ @ dC, served by a second schedule
+# built for Aᵀ (the graph is static, so both schedules amortize like the
+# paper's converged configuration). A's values are treated as constants
+# (the normalized adjacency is not trained).
+# ---------------------------------------------------------------------------
+
+
+def transpose_coo(a: fmt.COO) -> fmt.COO:
+    return fmt.transpose_coo(a)
+
+
+class SpmmFn:
+    """``f(b) = A @ b``, differentiable in ``b``: the kernels on A's
+    schedule forward and on Aᵀ's backward (``make_spmm_fn``). Holds both
+    schedules and their ``DeviceSteps`` per device, so a training loop plans
+    and uploads each once, whatever the executor cache evicts meanwhile."""
+
+    def __init__(self, sched: Schedule, sched_t: Schedule, *, ktile: int,
+                 backend: str | None):
+        self.sched, self.sched_t = sched, sched_t
+        self.ktile = ktile
+        self.backend = backend
+        self._steps: dict = {}
+
+    def device_steps(self, transpose: bool, device) -> DeviceSteps:
+        """A's (or, with ``transpose``, Aᵀ's) ``DeviceSteps`` on ``device``:
+        ``executor.device_step_arrays``' upload, held here after the first
+        call."""
+        from repro_torch.core.executor import device_step_arrays
+
+        key = (transpose, str(device))
+        steps = self._steps.get(key)
+        if steps is None:
+            steps = device_step_arrays(self.sched_t if transpose else self.sched,
+                                       device)
+            self._steps[key] = steps
+        return steps
+
+    def product(self, b: torch.Tensor, transpose: bool = False) -> torch.Tensor:
+        """``A @ b`` (or ``Aᵀ @ b``) on ``b``'s device, by the backend
+        rule of ``ops.spmm``: the kernels for a CUDA tensor unless
+        ``backend="torch"``, the plain version for a CPU tensor."""
+        steps = self.device_steps(transpose, b.device)
+        if (self.backend or ("cuda" if b.is_cuda else "torch")) == "cuda":
+            return spmm_balanced(steps, b.contiguous(), ktile=self.ktile)
+        return spmm_balanced_plain(steps, b)
+
+    def __call__(self, b: torch.Tensor) -> torch.Tensor:
+        return _AwbSpmm.apply(b, self)
+
+
+class _AwbSpmm(torch.autograd.Function):
+    """C = A @ B with dB = Aᵀ @ dC. A is a constant: no gradient reaches
+    its values."""
+
+    @staticmethod
+    def forward(ctx, b: torch.Tensor, fn: SpmmFn) -> torch.Tensor:
+        ctx.fn = fn
+        return fn.product(b)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dc: torch.Tensor):
+        # autograd may hand over a stride-0 expansion (``out.sum()``) or a
+        # strided view: the window kernel reads contiguous rows
+        return ctx.fn.product(dc.contiguous(), transpose=True), None
+
+
+def make_spmm_fn(a: fmt.COO, *, nnz_per_step: int = 256,
+                 rows_per_window: int = 64, ktile: int = 128,
+                 schedules: Tuple[Schedule, Schedule] | None = None,
+                 routing: str = "auto", backend: str | None = None) -> SpmmFn:
+    """Returns a differentiable ``f(b) = A @ b`` backed by the SpMM kernels
+    with schedules for A and Aᵀ built once (the converged configurations).
+
+    ``schedules`` accepts a prebuilt ``(forward, transpose)`` pair; when
+    omitted, both come from the registry's fingerprint cache
+    (``registry.get_spmm_schedules``), so repeated call sites on the same
+    graph share one build instead of re-running it. ``routing`` keeps the
+    JAX signature and is validated as ``ops.spmm`` validates it. ``backend``
+    follows ``ops.spmm``: ``None`` runs the kernels on a CUDA tensor and the
+    plain version on a CPU one, ``"cuda"`` the kernels, ``"torch"`` the
+    plain version on any device (both ways)."""
+    from repro_torch.kernels import ops
+
+    if routing not in ops.ROUTINGS:
+        raise ValueError(f"unknown routing {routing!r}; expected one of {ops.ROUTINGS}")
+    if backend not in (None,) + ops.BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of {ops.BACKENDS}")
+    if schedules is None:
+        from repro_torch.tuning.registry import get_spmm_schedules
+
+        schedules = get_spmm_schedules(a, nnz_per_step=nnz_per_step,
+                                       rows_per_window=rows_per_window)
+    sched, sched_t = schedules
+    return SpmmFn(sched, sched_t, ktile=ktile, backend=backend)

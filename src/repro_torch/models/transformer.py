@@ -178,17 +178,22 @@ def count_params(cfg: ModelConfig) -> int:
 
 def params_from_jax(cfg: ModelConfig, np_params: dict, device=None) -> dict:
     """The port's parameters from the JAX package's parameter pytree as
-    numpy arrays: each ``seg{i}`` leaf carries a leading ``repeat`` axis,
-    split here into one dict per layer."""
+    numpy arrays (or tensors, as a checkpoint restores them): each
+    ``seg{i}`` leaf carries a leading ``repeat`` axis, split here into one
+    dict per layer."""
     dev = resolve_device(device)
 
     def tensor(a):
+        if isinstance(a, torch.Tensor):
+            return a.to(dev, torch.float32)
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
 
     def take(tree, r):
         if isinstance(tree, dict):
             return {k: take(v, r) for k, v in tree.items()}
-        return tensor(np.asarray(tree)[r])
+        if not isinstance(tree, torch.Tensor):
+            tree = np.asarray(tree)
+        return tensor(tree[r])
 
     layer_kinds(cfg)  # raises on kinds the port does not run
     params = {"embed": tensor(np_params["embed"]),
@@ -202,6 +207,28 @@ def params_from_jax(cfg: ModelConfig, np_params: dict, device=None) -> dict:
             layers += [take(seg[f"l{i}"], r) for i in range(len(unit))]
     params["layers"] = layers
     return params
+
+
+def jax_layout(cfg: ModelConfig, params: dict) -> dict:
+    """The port's parameters in the JAX package's layout, the inverse of
+    ``params_from_jax``: each segment's unit layers stacked along a leading
+    ``repeat`` axis as ``seg{i}/l{j}``. Checkpoints use this layout."""
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return torch.stack(trees)
+
+    out = {k: v for k, v in params.items() if k != "layers"}
+    layers, at = params["layers"], 0
+    for si, (unit, repeat) in enumerate(cfg.segments):
+        n = len(unit)
+        out[f"seg{si}"] = {
+            f"l{i}": stack([layers[at + r * n + i] for r in range(repeat)])
+            for i in range(n)
+        }
+        at += n * repeat
+    return out
 
 
 # ---------------------------------------------------------------------------

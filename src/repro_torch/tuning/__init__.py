@@ -11,14 +11,15 @@ The port of ``repro.tuning``:
   ``~/.cache/repro-awb-gcn/tuning-torch`` (or ``$REPRO_TORCH_TUNING_STORE``);
 * ``registry`` — the in-process caches (fingerprint → schedule / executor).
 
-Multi-device executors are not ported yet, so ``get_spmm_schedules`` and
-``mesh_fingerprint`` are not exported here.
+Multi-device executors are not ported yet, so ``mesh_fingerprint`` is not
+exported here.
 """
 from repro_torch.tuning.registry import (  # noqa: F401
     clear_caches,
     executor_for_schedule,
     get_executor,
     get_schedule,
+    get_spmm_schedules,
     graph_fingerprint,
 )
 from repro_torch.tuning.runner import (  # noqa: F401

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import hashlib
 from collections import OrderedDict
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -182,6 +182,21 @@ def adopt_schedule(fingerprint: str, cfg, sched: Schedule) -> None:
                      cfg.cols_per_block, cfg.window_nnz, True,
                      getattr(cfg, "reorder", "none"))
     _SCHEDULE_CACHE.setdefault(key, sched)
+
+
+def get_spmm_schedules(
+    a: fmt.COO,
+    *,
+    nnz_per_step: int = 256,
+    rows_per_window: int = 64,
+    cols_per_block=None,
+) -> Tuple[Schedule, Schedule]:
+    """(schedule for A, schedule for Aᵀ), both fingerprint-cached — what a
+    differentiable SpMM needs (d(A@B)/dB = Aᵀ @ dC). Call sites stop
+    rebuilding both schedules per invocation."""
+    kw = dict(nnz_per_step=nnz_per_step, rows_per_window=rows_per_window,
+              cols_per_block=cols_per_block)
+    return get_schedule(a, **kw), get_schedule(fmt.transpose_coo(a), **kw)
 
 
 def get_executor(

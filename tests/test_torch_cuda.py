@@ -9,6 +9,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import csc as tfmt  # noqa: E402
 from repro_torch.core import executor as texe  # noqa: E402
 from repro_torch.core import gcn as tgcn  # noqa: E402
 from repro_torch.core import schedule as tsched  # noqa: E402
@@ -441,3 +442,90 @@ def test_engine_update_chain_on_the_card(dev, tmp_path):
     # the engine's accounting, up to the allocator's rounding
     assert abs(held - eng.device_bytes_in_use) <= (1 << 20), (
         held, eng.device_bytes_in_use)
+
+
+# ---- make_spmm_fn: the kernels forward on A, backward on Aᵀ --------------------
+
+def _spmm_fn_pair(a, kind, dev):
+    """``make_spmm_fn`` with the kernels and with their plain versions on one
+    schedule pair (A's and Aᵀ's of one ``SCHEDULES`` kind)."""
+    pair = (SCHEDULES[kind](a), SCHEDULES[kind](tfmt.transpose_coo(a)))
+    return (spmm_cuda.make_spmm_fn(a, schedules=pair),
+            spmm_cuda.make_spmm_fn(a, schedules=pair, backend="torch"))
+
+
+@pytest.mark.parametrize("kind", ["balanced", "blocked_evil"])
+@pytest.mark.parametrize("kdim", [6, 41, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_make_spmm_fn_grads_match_plain(dev, kind, kdim, dtype):
+    a = tsynth.power_law_adjacency(96, 0.1, 1.2, seed=4)
+    f, plain = _spmm_fn_pair(a, kind, dev)
+    if kind == "blocked_evil":
+        assert f.sched.n_evil_chunks > 0 and f.sched_t.n_evil_chunks > 0
+    rng = np.random.default_rng(kdim)
+    b0 = torch.from_numpy(rng.standard_normal((96, kdim)).astype(np.float32)).to(dev)
+    dc = torch.from_numpy(rng.standard_normal((96, kdim)).astype(np.float32)).to(dev)
+    grads, outs = [], []
+    for fn in (f, plain, f):
+        b = b0.to(dtype).requires_grad_()
+        out = fn(b)
+        (db,) = torch.autograd.grad(out, b, dc.to(dtype))
+        outs.append(out.detach())
+        grads.append(db)
+    dense_t = tfmt.coo_to_dense(a).t().to(dev)
+    gold = dense_t @ dc
+    assert grads[0].dtype == dtype
+    assert float((grads[0].float() - gold).abs().max()) <= _tol(gold, dtype)
+    assert float((grads[0].float() - grads[1].float()).abs().max()) <= _tol(gold, dtype)
+    err = float((outs[0].float() - outs[1].float()).abs().max())
+    assert err <= _tol(outs[1].float(), dtype)
+    assert torch.equal(grads[0], grads[2]) and torch.equal(outs[0], outs[2])
+
+
+def test_make_spmm_fn_launches_once_per_pass(dev):
+    a = tsynth.power_law_adjacency(200, 0.02, 1.1, seed=200)
+    f, _ = _spmm_fn_pair(a, "balanced", dev)
+    b = torch.randn((200, 16), device=dev, requires_grad=True)
+    spmm_cuda.reset_launches()
+    out = f(b)
+    torch.cuda.synchronize()
+    assert spmm_cuda.LAUNCHES["spmm_balanced"] == 1
+    assert spmm_cuda.LAUNCHES["spmm_epilogue"] == 1
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    assert spmm_cuda.LAUNCHES["spmm_balanced"] == 2
+    assert spmm_cuda.LAUNCHES["spmm_epilogue"] == 2
+
+
+def test_make_spmm_fn_backward_takes_any_layout_of_dc(dev):
+    a = tsynth.power_law_adjacency(123, 0.08, 0.6, seed=123)
+    f, plain = _spmm_fn_pair(a, "blocked_evil", dev)
+    gold_t = tfmt.coo_to_dense(a).t().to(dev)
+    b = torch.randn((123, 41), device=dev, requires_grad=True)
+    f(b).sum().backward()  # a stride-0 expansion of one scalar
+    gold = gold_t @ torch.ones((123, 41), device=dev)
+    assert float((b.grad - gold).abs().max()) <= _tol(gold, torch.float32)
+    wide = torch.randn((123, 50), device=dev)
+    for dc in (wide.t().contiguous().t()[:, :41], wide[:, 3:44], wide[:, 1:42]):
+        assert not dc.is_contiguous()
+        (db,) = torch.autograd.grad(f(b), b, dc)
+        (dp,) = torch.autograd.grad(plain(b), b, dc)
+        gold = gold_t @ dc
+        assert float((db - gold).abs().max()) <= _tol(gold, torch.float32)
+        assert float((db - dp).abs().max()) <= _tol(gold, torch.float32)
+
+
+def test_make_spmm_fn_uploads_once_across_steps(dev, monkeypatch):
+    a = tsynth.power_law_adjacency(200, 0.02, 1.1, seed=7)
+    uploads = []
+    real = texe._upload_plan
+    monkeypatch.setattr(texe, "_upload_plan",
+                        lambda *a, **k: uploads.append(1) or real(*a, **k))
+    f = spmm_cuda.make_spmm_fn(a, nnz_per_step=32, rows_per_window=16)
+    w = torch.randn((8, 8), device=dev, requires_grad=True)
+    x = torch.randn((200, 8), device=dev)
+    for _ in range(3):
+        torch.relu(f(x @ w)).sum().backward()
+        texe._DEVICE_STEPS.clear()  # the executor cache's eviction
+    torch.cuda.synchronize()
+    assert len(uploads) == 2

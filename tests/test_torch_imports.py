@@ -43,7 +43,12 @@ def test_port_files_exist():
               "src/repro_torch/serving/policy.py", "src/repro_torch/serving/placement.py",
               "src/repro_torch/serving/errors.py", "src/repro_torch/serving/types.py",
               "src/repro_torch/core/pesim.py", "src/repro_torch/core/autotuner.py",
-              "src/repro_torch/core/profiler.py"):
+              "src/repro_torch/core/profiler.py",
+              "src/repro_torch/training/__init__.py",
+              "src/repro_torch/training/optimizer.py",
+              "src/repro_torch/training/checkpoint.py",
+              "src/repro_torch/training/tree.py",
+              "src/repro_torch/data/__init__.py", "src/repro_torch/data/tokens.py"):
         assert f in names
     for src in ("spmm_balanced.cu", "flash_attention.cu"):
         assert (REPO / "src/repro_torch/kernels/csrc" / src).exists()
@@ -62,7 +67,8 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
             "repro_torch.core.gcn, repro_torch.graphs.synth, repro_torch.kernels.ops, "
             "repro_torch.configs, repro_torch.models.transformer_serve, "
             "repro_torch.launch.serve, repro_torch.tuning, repro_torch.serving, "
-            "repro_torch.core.profiler; "
+            "repro_torch.core.profiler, repro_torch.training.checkpoint, "
+            "repro_torch.data; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "assert not bad, bad; "
             "from repro_torch.kernels import _build; "
