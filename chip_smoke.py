@@ -107,6 +107,30 @@ Builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    (forward, backward, optimizer), the COO steps, and the two kernels on
    Aᵀ at the backward's widths (128, 41) beside their plain versions and
    ``torch.sparse.mm`` on Aᵀ in CSR (a yardstick the port never calls).
+9a. Runs ``ShardedScheduleExecutor`` on phase 2's reddit schedule over
+   ``MESH_SIZES`` (2 and 4) mesh positions, round robin over the visible
+   cards: on one card every position names it (``["cuda:0"] * D``; the card
+   runs the positions one after another, so this measures the sharded
+   path's cost, not scaling). Per mesh: the shards'
+   step counts (max − min ≤ 1), non-zeros and live slots; its allocation
+   against ``device_bytes``; ``forward_batch`` on phase 2's first 4 requests
+   (kdim 512, then 164) with launch counts reset just before and read just
+   after — 2·D window and 2·D epilogue launches — held against phase 2's
+   single-device logits and the COO forward, two calls bit-equal; the batch
+   and the SpMM at both widths timed beside the single-device executor,
+   with one partial add timed and the partials' bytes at HBM rate.
+9b. Serves through ``GCNServingEngine`` on 4 such positions
+   (``devices=["cuda:0"] * 4`` on one card) with a
+   one-candidate sweep and a per-position budget of a quarter of reddit's
+   estimate, so reddit takes the sharded route (launch counts reset just
+   before and read after the phase): a cold admission, 4 requests against
+   the single-device executor, a warm restart with bit-equal logits;
+   pubmed and cora at their published sizes on single positions, pubmed
+   made hot until it holds 3 replicas whose logits equal a ``max_replicas=1``
+   engine's bit for bit; an injected ``replica_chunk`` fault retried on a
+   sibling (0 request failures); a 16-edge value and a 16-edge structural
+   delta into sharded reddit and a value delta into replicated pubmed, each
+   graph then bit-equal to a cold admission of its final graph.
 
 Float32 matmuls and cuDNN run without TF32 (both flags are set False), so
 every float32 product is full float32. Tolerances, each scaled by
@@ -122,8 +146,10 @@ line, a ``{"serving": ...}`` line, a ``{"lm_serving": ...}`` line, the
 window kernel's all-gathers-miss bound per kdim, the flash kernel's bounds
 (``flash_bounds``), an ``{"engine_serving": ...}`` line, an
 ``{"engine_streaming": ...}`` line, a ``{"gcn_training": ...}`` line (the
-kernels line names phase 8's Aᵀ entries ``...@AT``), the card's name and
-power limit, and as
+kernels line names phase 8's Aᵀ entries ``...@AT``; its f32 SpMM entries
+carry their launches per sharded ``forward_batch``), a
+``{"mesh_executor": ...}`` and an ``{"engine_mesh": ...}`` line, the card's
+name and power limit, and as
 its last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device, or without the rest of the repository, it exits
@@ -171,6 +197,11 @@ BATCHES, BATCH_SIZE, KEEP, STEADY_S = 3, 4, 0.9, 2.0
 #: chain under concurrent serving, the wide delta's edges, the drift graph
 STREAM_EDGES, STREAM_SEED, STREAM_WARMUP, STREAM_TIMED = 16, 4321, 4, 16
 STREAM_CHAIN, STREAM_WIDE, DRIFT_GRAPH = 8, 4096, "pubmed"
+#: phase 9: the sharded executor's mesh sizes (positions on the one card),
+#: the mesh engine's positions, its graphs beside reddit (the first one hot)
+#: and the hot graph's requests per poll
+MESH_SIZES, MESH_ENGINE_POSITIONS = (2, 4), 4
+MESH_SMALL, MESH_HOT_REQUESTS = ("pubmed", "cora"), 12
 #: phase 8: AdamW steps through the kernels (and through the COO product),
 #: the step whose state is checkpointed and resumed from, and the optimizer's
 #: settings (the JAX package's GCN training test's)
@@ -1515,6 +1546,331 @@ def phase_training(dev, ds):
     return record, kernels
 
 
+def mesh_of(dev, d):
+    """``d`` mesh positions round robin over the visible cards: on one card
+    every position names ``dev``."""
+    import torch
+
+    n = torch.cuda.device_count() if dev.type == "cuda" else 1
+    return [dev if n == 1 else torch.device("cuda", i % n) for i in range(d)]
+
+
+def allocated(mesh) -> int:
+    """Bytes allocated on the mesh's distinct devices."""
+    import torch
+
+    return sum(torch.cuda.memory_allocated(x) for x in {str(x): x for x in mesh}.values())
+
+
+def phase9_requests(ds, dev):
+    """Phase 2's weights and its first batch of 4 requests."""
+    import torch
+
+    from repro_torch.core import gcn
+
+    cfg = gcn.GCNConfig(ds.num_features, ds.hidden, ds.num_classes)
+    params = gcn.params_from_jax(glorot(cfg.dims, seed=0), dev)
+    x = torch.from_numpy(ds.features).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(1)  # phase 2's requests
+    xb = torch.stack([x * (torch.rand(x.shape, generator=gen, device=dev) < KEEP)
+                      for _ in range(BATCH_SIZE)])
+    return params, xb
+
+
+def phase_mesh_executor(dev, ds):
+    """``ShardedScheduleExecutor`` on phase 2's reddit schedule over
+    ``MESH_SIZES`` positions (round robin over the visible cards); see the
+    module docstring's phase 9a. Returns the ``mesh_executor`` record and the launches per
+    sharded ``forward_batch``."""
+    import torch
+
+    from repro_torch.core import executor as texe
+    from repro_torch.core import gcn
+    from repro_torch.kernels import spmm_cuda
+    from repro_torch.sharding import schedule_shard
+    from repro_torch.tuning import registry
+
+    m, n = ds.adj.shape
+    params, xb = phase9_requests(ds, dev)
+    adj = coo_on(ds.adj, dev)
+    golds = [gcn.forward(params, adj, xb[i]) for i in range(BATCH_SIZE)]
+    del adj
+    single = registry.get_executor(ds.adj, device=dev)  # phase 2's executor
+    sched = single.sched
+    gold_single = single.forward_batch(params, xb)
+    widths = (BATCH_SIZE * ds.hidden, BATCH_SIZE * ds.num_classes)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    ops = {k: torch.randn((n, k), generator=gen, device=dev) for k in widths}
+    single_ms = timed_ms(lambda: single.forward_batch(params, xb), 5)
+    single_spmm = {str(k): timed_ms(lambda b=b: single.spmm(b), 10)
+                   for k, b in ops.items()}
+    # one add of two [m, kdim] f32 partials: the ordered sum's unit of work
+    add_ms = {}
+    for k in widths:
+        p0, p1 = torch.randn((m, k), device=dev), torch.randn((m, k), device=dev)
+        add_ms[str(k)] = timed_ms(lambda p0=p0, p1=p1: p0.add_(p1), 10)
+        del p0, p1
+    # the batch's X·W products: one per request (forward_batch's, so a
+    # request's logits do not depend on its batch) against one GEMM over
+    # the stacked requests
+    h1 = torch.relu(xb @ params["w0"])
+    dense_ms = {
+        "per_request": timed_ms(lambda: [torch.matmul(xb[j], params["w0"]) for j in
+                                         range(BATCH_SIZE)] + [torch.matmul(
+                                             h1[j], params["w1"]) for j in
+                                             range(BATCH_SIZE)], 5),
+        "batched": timed_ms(lambda: (xb @ params["w0"], h1 @ params["w1"]), 5),
+    }
+    del h1
+    live_single = int(single._steps.slots.shape[0])
+    del single
+    torch.cuda.empty_cache()
+    records, launches_per = [], {}
+    for d in MESH_SIZES:
+        mesh = mesh_of(dev, d)
+        torch.cuda.synchronize()
+        base = allocated(mesh)
+        t0 = time.perf_counter()
+        ex = texe.ShardedScheduleExecutor(sched, mesh=mesh)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        held = allocated(mesh) - base
+        if not ex.device_bytes <= held <= ex.device_bytes + (1 << 20):
+            raise AssertionError(f"{d} positions hold {held} bytes for their "
+                                 f"device_bytes {ex.device_bytes}")
+        steps = schedule_shard.shard_step_counts(sched.n_steps, d)
+        nnz = schedule_shard.shard_nnz(sched, d)
+        live = [int(s.slots.shape[0]) for s in ex._steps]
+        if steps.max() - steps.min() > 1 or int(nnz.sum()) != sched.nnz or (
+                sum(live) != live_single):
+            raise AssertionError(f"shards of {d}: steps {steps}, nnz {nnz}, live {live}")
+        spmm_cuda.reset_launches()
+        out = ex.forward_batch(params, xb)
+        torch.cuda.synchronize()
+        launches = dict(spmm_cuda.LAUNCHES)
+        for name in F32_SPMM:
+            if launches[name] != 2 * d:
+                raise AssertionError(f"{d} positions: {launches[name]} launches of "
+                                     f"{name} in one forward_batch (want {2 * d})")
+        launches_per[str(d)] = {name: launches[name] for name in F32_SPMM}
+        if not torch.equal(out, ex.forward_batch(params, xb)):
+            raise AssertionError(f"{d} positions: two calls differ")
+        err_single = check(f"mesh {d} vs single-device", out, gold_single, torch.float32)
+        err_coo = max(check(f"mesh {d} request {i}", out[i], golds[i], torch.float32)
+                      for i in range(BATCH_SIZE))
+        batch_ms = timed_ms(lambda: ex.forward_batch(params, xb), 5)
+        spmm_ms = {str(k): timed_ms(lambda b=b: ex.spmm(b), 10) for k, b in ops.items()}
+        records.append({
+            "positions": d, "mesh": [str(x) for x in mesh], "build_s": build_s, "device_bytes": ex.device_bytes,
+            "allocated_bytes": held, "steps_per_shard": steps.tolist(),
+            "nnz_per_shard": nnz.tolist(), "live_slots_per_shard": live,
+            "max_abs_err_vs_single": err_single, "max_abs_err_vs_coo": err_coo,
+            "bit_equal_calls": True, "batch_ms": batch_ms,
+            "batch_ms_single": single_ms, "spmm_ms": spmm_ms,
+            "spmm_ms_single": single_spmm,
+            # the partials' bytes: D [m, kdim] f32 rows written by the
+            # epilogues and read by the sum, at HBM rate
+            "partial_bytes": {str(k): d * m * k * 4 for k in widths},
+            "partial_bytes_ms": {str(k): d * m * k * 4 / PEAK_BYTES_PER_S * 1e3
+                                 for k in widths},
+        })
+        del ex, out
+        texe.release_device_steps(sched)
+        torch.cuda.empty_cache()
+    return {"graph": "reddit", "nodes": m, "nnz": int(sched.nnz),
+            "n_steps": sched.n_steps, "widths": list(widths), "add_ms": add_ms,
+            "dense_xw_ms": dense_ms,
+            "cards": len({str(x) for x in mesh_of(dev, max(MESH_SIZES))}),
+            "note": "positions that name one card run one after another: there "
+                    "this measures the sharded path's cost, not scaling",
+            "meshes": records}, launches_per
+
+
+def phase_mesh_engine(dev, ds):
+    """``GCNServingEngine`` on ``MESH_ENGINE_POSITIONS`` positions (round
+    robin over the visible cards); see the module docstring's phase 9b. Returns the ``engine_mesh``
+    record."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import gcn
+    from repro_torch.core.executor import FAULTS, ShardedScheduleExecutor
+    from repro_torch.graphs import synth
+    from repro_torch.kernels import spmm_cuda
+    from repro_torch.serving.gcn_engine import GCNServingEngine
+    from repro_torch.serving.placement import REPLICATED, SHARDED, SINGLE
+    from repro_torch.tuning import registry
+    from repro_torch.tuning.store import TuningStore
+
+    d = MESH_ENGINE_POSITIONS
+    mesh = mesh_of(dev, d)
+    one = dict(iters=1, warmup=1, bf16_report=False, sweep=[dict(
+        nnz_per_step=256, rows_per_window=64, cols_per_block=None, window_nnz=None,
+        routing="gather")])
+    params, xb = phase9_requests(ds, dev)
+    reqs = list(xb)
+    dirs = [tempfile.mkdtemp(prefix="chip_smoke_mesh_", dir=ROOT / "build")
+            for _ in range(4)]
+    rng = np.random.default_rng(STREAM_SEED)
+    small = {}
+    for name in MESH_SMALL:
+        sd = synth.make_dataset(name, scale=1, device=dev)
+        scfg = gcn.GCNConfig(sd.num_features, sd.hidden, sd.num_classes)
+        sx = torch.from_numpy(sd.features).to(dev)
+        small[name] = (sd.adj, gcn.params_from_jax(glorot(scfg.dims, seed=0), dev),
+                       [sx * (1.0 - 0.02 * i) for i in range(MESH_HOT_REQUESTS)])
+    est = ds.adj.nnz * 16
+    budget = est // 4  # reddit over one position's budget: the sharded route
+    registry.clear_caches()
+    FAULTS.clear()
+    try:
+        spmm_cuda.reset_launches()
+        eng = GCNServingEngine(store=TuningStore(dirs[0]), devices=mesh,
+                               device_budget_bytes=budget, max_replicas=3,
+                               replicate_after_s=1e-6, replica_shrink_after=10**6,
+                               max_batch=64, autotune_kwargs=one)
+        t0 = time.perf_counter()
+        cold = eng.add_graph("reddit", ds.adj, params)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        rec = eng._graphs["reddit"]
+        if (cold.warm_start or cold.placement.kind != SHARDED
+                or cold.config.n_devices != d
+                or not isinstance(rec.executor, ShardedScheduleExecutor)):
+            raise AssertionError(f"reddit did not take the sharded route: {cold}")
+        for r in reqs:
+            eng.submit("reddit", r, deadline_s=ENGINE_DEADLINE_S)
+        out = eng.flush()["reddit"]
+        single = registry.get_executor(ds.adj, device=dev)
+        gold = single.forward_batch(params, xb)
+        registry.clear_caches()
+        err = check("sharded engine vs single-device", out, gold, torch.float32)
+        del single, gold
+        # -- a warm restart of the sharded route -----------------------------
+        warm_eng = GCNServingEngine(store=TuningStore(dirs[0]), devices=mesh,
+                                    device_budget_bytes=budget, autotune_kwargs=one)
+        t0 = time.perf_counter()
+        warm = warm_eng.add_graph("reddit", ds.adj, params)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        if not warm.warm_start or warm.placement.kind != SHARDED:
+            raise AssertionError(f"the restart was not warm: {warm}")
+        if not torch.equal(warm_eng.serve_batch("reddit", reqs), out):
+            raise AssertionError("the warm restart's logits differ")
+        warm_eng.remove_graph("reddit")
+        del warm_eng
+        torch.cuda.empty_cache()
+        # -- small graphs on single positions; the hot one replicates -------
+        placements = {}
+        for name, (adj, sp, sreqs) in small.items():
+            rep = eng.add_graph(name, adj, sp)
+            if rep.placement.kind != SINGLE:
+                raise AssertionError(f"{name} did not take one position: {rep}")
+            placements[name] = rep.placement.device_index
+            eng.infer(name, sreqs[0])
+        hot = MESH_SMALL[0]
+        adj, sp, sreqs = small[hot]
+        base_eng = GCNServingEngine(store=TuningStore(dirs[1]), devices=mesh,
+                                    max_replicas=1, autotune_kwargs=one)
+        base_eng.add_graph(hot, adj, sp)
+        ref = base_eng.serve_batch(hot, sreqs)
+        eng.serve_batch(hot, sreqs[:2])  # prime the service EWMA
+        t0 = time.perf_counter()
+        for _ in range(3):
+            for r in sreqs:
+                eng.submit(hot, r, deadline_s=0.0)
+            if not torch.equal(eng.poll()[hot], ref):
+                raise AssertionError("replicated logits differ from one replica's")
+        grow_s = time.perf_counter() - t0
+        pl = eng.placer.placement_of(hot)
+        if pl.kind != REPLICATED or len(pl.device_indices) != 3:
+            raise AssertionError(f"{hot} did not replicate: {pl}")
+        replicas = eng.stats()["replicas"]
+        # -- a failed replica chunk retries on a sibling ---------------------
+        victim = sorted(eng._graphs[hot].replicas)[0]
+        FAULTS.arm("replica_chunk", graph=hot, device=victim, times=1)
+        if not torch.equal(eng.serve_batch(hot, sreqs), ref):
+            raise AssertionError("the sibling retry changed the logits")
+        if FAULTS.fired != [("replica_chunk", hot, victim)]:
+            raise AssertionError(f"the fault did not fire: {FAULTS.fired}")
+        fired = [list(f) for f in FAULTS.fired]
+        FAULTS.clear()
+        # -- updates: sharded reddit, replicated hot ------------------------
+        updates = []
+        for kind in ("value", "structural"):
+            delta = (value_delta(eng._graphs["reddit"].coo, STREAM_EDGES, rng)
+                     if kind == "value" else structural_delta(ds.num_nodes,
+                                                              STREAM_EDGES, rng))
+            t0 = time.perf_counter()
+            urep = eng.update_graph("reddit", delta)
+            torch.cuda.synchronize()
+            updates.append({"kind": kind, "update_seconds": time.perf_counter() - t0,
+                            "repaired": urep.repaired, "fell_back": urep.fell_back,
+                            "scoped_upload": urep.scoped_upload,
+                            "dirty_positions": getattr(eng._graphs["reddit"].executor,
+                                                       "dirty_devices", None)})
+            if not urep.repaired or urep.fell_back:
+                raise AssertionError(f"the {kind} update did not repair: {urep}")
+        urep = eng.update_graph(hot, value_delta(eng._graphs[hot].coo, STREAM_EDGES, rng))
+        if not urep.repaired or not urep.scoped_upload:
+            raise AssertionError(f"the update of replicated {hot}: {urep}")
+        outs = [u.executor.forward_batch(u.params, torch.stack(sreqs[:1])).to(dev)
+                for u in eng._units(eng._graphs[hot])]
+        if len(outs) != 3 or not all(torch.equal(o, outs[0]) for o in outs):
+            raise AssertionError("the replicas of the updated graph differ")
+        streamed = eng.serve_batch("reddit", reqs)
+        eng.drain_persists()
+        # -- cold admissions of the final graphs ------------------------------
+        cold_eng = GCNServingEngine(store=TuningStore(dirs[2]), devices=mesh,
+                                    device_budget_bytes=budget, autotune_kwargs=one)
+        cold_eng.add_graph("reddit", eng._graphs["reddit"].coo, params)
+        if not torch.equal(cold_eng.serve_batch("reddit", reqs), streamed):
+            raise AssertionError("streamed reddit differs from a cold admission's")
+        cold_eng.remove_graph("reddit")
+        del cold_eng
+        hot_eng = GCNServingEngine(store=TuningStore(dirs[3]), device=dev,
+                                   autotune_kwargs=one)
+        hot_eng.add_graph(hot, eng._graphs[hot].coo, sp)
+        if not torch.equal(hot_eng.infer(hot, sreqs[0]), outs[0][0]):
+            raise AssertionError(f"updated {hot} differs from a cold admission's")
+        del hot_eng
+        launches = dict(spmm_cuda.LAUNCHES)
+        st = eng.stats()
+        if st["request_failures"] != 0 or st["chunk_retries"] < 1:
+            raise AssertionError(f"failures {st['request_failures']}, "
+                                 f"retries {st['chunk_retries']}")
+        record = {
+            "positions": d, "mesh": [str(x) for x in mesh], "budget_bytes": budget,
+            "reddit_estimate_bytes": est,
+            "cold_add_graph_s": cold_s, "warm_add_graph_s": warm_s,
+            "reddit_device_bytes": cold.device_bytes, "max_abs_err": err,
+            "placements": placements, "replicas": replicas,
+            "replica_growth_s": grow_s, "updates": updates,
+            "logits_equal_cold_admission": True, "replicas_bit_equal": True,
+            "fault_fired": fired,
+            "counters": {k: st[k] for k in (
+                "request_failures", "chunk_retries", "replicas_added", "batches",
+                "requests", "graph_updates", "evictions", "rebalances")},
+            "per_device_bytes": [p["used_bytes"] for p in st["per_device"]],
+            "launches": launches,
+        }
+        for name in small:
+            eng.remove_graph(name)
+        eng.remove_graph("reddit")
+        del eng, base_eng
+    finally:
+        FAULTS.clear()
+        for p in dirs:
+            shutil.rmtree(p, ignore_errors=True)
+    torch.cuda.empty_cache()
+    for name in F32_SPMM:
+        if launches[name] == 0:
+            raise AssertionError(f"phase 9b never launched {name}")
+    return record
+
+
 def serve_requests(eng, reqs):
     """Submit ``reqs`` to reddit with deadlines, collect every batch (the
     ``max_batch`` threshold flushes them) and return the logits in order."""
@@ -1902,7 +2258,21 @@ def main() -> int:
     training, at_kernels = phase_training(dev, ds)
     print(f"[phase 8] trained on reddit ({TRAIN_STEPS} steps, resumed from step "
           f"{TRAIN_SAVE_AT}) in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    t0 = time.perf_counter()
+    mesh_exec, mesh_launches = phase_mesh_executor(dev, ds)
+    print(f"[phase 9a] sharded reddit on {MESH_SIZES} positions in "
+          f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    t0 = time.perf_counter()
+    mesh_engine = phase_mesh_engine(dev, ds)
+    print(f"[phase 9b] mesh engine (sharded reddit, replicas, updates, a fault) in "
+          f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
     del ds
+    for entry in kernels:
+        if entry["name"] in F32_SPMM:
+            entry["launches_sharded_forward_batch"] = {
+                pos: per[entry["name"]] for pos, per in mesh_launches.items()}
+    mesh_exec["card"] = card
+    mesh_engine["card"] = card
     training["card"] = card
     kernels.extend(at_kernels)
     streaming["card"] = card
@@ -1924,6 +2294,8 @@ def main() -> int:
     print(json.dumps({"engine_serving": engine}))
     print(json.dumps({"engine_streaming": streaming}))
     print(json.dumps({"gcn_training": training}))
+    print(json.dumps({"mesh_executor": mesh_exec}))
+    print(json.dumps({"engine_mesh": mesh_engine}))
     # the window kernel's bound if every gathered B row came from HBM, per kdim
     print(json.dumps({"spmm_balanced_bound_all_miss_ms": all_miss}))
     # the flash kernel's bounds at the prefill shape: tensor cores (3xTF32 in

@@ -93,18 +93,23 @@ def make_schedule_spmm(sched: Schedule) -> Callable:
 
 def forward_awb(params: dict, a: fmt.COO, x: torch.Tensor,
                 sched: Optional[Schedule] = None, executor=None,
-                device=None) -> torch.Tensor:
+                device=None, n_devices: Optional[int] = None,
+                mesh=None) -> torch.Tensor:
     """Forward pass through the converged AWB configuration on a
     ``ScheduleExecutor`` cached by graph fingerprint (device-resident
     schedule, uploaded once). Pass ``sched`` to pin a caller-built
-    schedule, or ``executor`` to bring your own."""
+    schedule, or ``executor`` to bring your own. ``n_devices`` (the first
+    CUDA devices) or ``mesh`` (a list of devices) runs the layers' SpMMs
+    on the sharded executor instead, cached by (graph fingerprint, mesh)."""
     from repro_torch.tuning import registry as _reg
 
+    place = (dict(device=device) if n_devices is None and mesh is None
+             else dict(n_devices=n_devices, mesh=mesh))
     if executor is None:
         if sched is None:
-            executor = _reg.get_executor(a, device=device)
+            executor = _reg.get_executor(a, **place)
         else:
-            executor = _reg.executor_for_schedule(sched, device=device)
+            executor = _reg.executor_for_schedule(sched, **place)
     return executor.forward(params, x)
 
 

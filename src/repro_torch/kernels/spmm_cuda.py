@@ -100,8 +100,10 @@ class DeviceSteps(NamedTuple):
 DEVICE_FIELDS = ("slots", "slot_ptr", "part_ptr", "epi_ptr", "epi_part")
 
 
-def kernel_plan(sched: Schedule) -> dict:
-    """Host arrays the kernels need beyond the schedule's own.
+def kernel_plan(sched: Schedule, steps=None) -> dict:
+    """Host arrays the kernels need beyond the schedule's own, for the
+    ascending step indices ``steps`` (None: every step; a sharded
+    executor plans each mesh position's step range apart).
 
     * ``slot_ptr``: step s's live slots, its first ``slot_ptr[s+1] -
       slot_ptr[s]`` (1 + its last slot with ``val != 0``; 0 for an
@@ -117,7 +119,7 @@ def kernel_plan(sched: Schedule) -> dict:
       do not read; ``splice_plan`` carries it over for reused steps.
 
     Steps may come in any order: no partial takes sums from two steps."""
-    return _plan_from_records(*step_records(sched), sched.shape[0])
+    return _plan_from_records(*step_records(sched, steps), sched.shape[0])
 
 
 def step_records(sched: Schedule, steps=None):
@@ -166,21 +168,28 @@ def _plan_from_records(slots, live, n_part, part_row, m: int) -> dict:
     }
 
 
-def splice_plan(old: dict, new_sched: Schedule, step_src) -> dict:
-    """``kernel_plan(new_sched)`` from the old schedule's plan and a repair's
-    ``step_src`` (per new step, the old step whose slots it carries
-    verbatim, or -1): a reused step keeps its records, its run starts and
-    its partials' output rows (a repair remaps ``row_map`` to the new
-    windows without changing the rows it names), so only re-emitted steps
-    are planned afresh. Reused steps whose sources follow one another are
-    copied as one range. Equal to the full plan, array for array."""
+def splice_plan(old: dict, new_sched: Schedule, step_src, steps=None) -> dict:
+    """``kernel_plan(new_sched, steps)`` from the old schedule's plan and a
+    repair's ``step_src`` (per planned new step, the step of ``old`` whose
+    slots it carries verbatim, or -1): a reused step keeps its records, its
+    run starts and its partials' output rows (a repair remaps ``row_map``
+    to the new windows without changing the rows it names), so only
+    re-emitted steps are planned afresh. Reused steps whose sources follow
+    one another are copied as one range. Equal to the full plan, array for
+    array. ``steps`` (None: every new step) are the ascending new steps the
+    plan covers, one per ``step_src`` entry — a mesh position's range."""
     src = np.asarray(step_src, np.int64)
     s_new = src.shape[0]
-    if s_new != new_sched.n_steps:
-        raise ValueError("step_src does not match the repaired schedule")
+    if steps is None:
+        if s_new != new_sched.n_steps:
+            raise ValueError("step_src does not match the repaired schedule")
+        steps = np.arange(s_new)
+    elif len(steps) != s_new:
+        raise ValueError("step_src does not match the planned steps")
     reused = src >= 0
     fresh = np.flatnonzero(~reused)
-    f_slots, f_live, f_part, f_rows = step_records(new_sched, fresh)
+    f_slots, f_live, f_part, f_rows = step_records(
+        new_sched, np.asarray(steps, np.int64)[fresh])
     o_sp = old["slot_ptr"].astype(np.int64)
     o_pp = old["part_ptr"].astype(np.int64)
     live = np.empty(s_new, np.int64)
@@ -209,6 +218,27 @@ def splice_plan(old: dict, new_sched: Schedule, step_src) -> dict:
             rows[pp[a]:pp[b]] = f_rows[fp:fp + np_]
             fs, fp = fs + ns, fp + np_
     return _plan_from_records(slots, live, n_part, rows, new_sched.shape[0])
+
+
+def concat_plans(plans) -> dict:
+    """One plan of consecutive steps from the plans of consecutive step
+    ranges (a sharded executor's positions; None: an empty range), with
+    the fields ``splice_plan`` reads of an old plan: the records, the step
+    pointers and each partial's output row."""
+    plans = [p for p in plans if p is not None]
+    if not plans:
+        zero = np.zeros(1, np.int32)
+        return {"slots": np.zeros((0, 2), np.int32), "slot_ptr": zero,
+                "part_ptr": zero, "part_row": np.zeros(0, np.int32)}
+
+    def ptrs(key):
+        off = np.cumsum([0] + [int(p[key][-1]) for p in plans[:-1]])
+        return np.concatenate([[0]] + [p[key][1:].astype(np.int64) + o
+                                       for p, o in zip(plans, off)]).astype(np.int32)
+
+    return {"slots": np.concatenate([p["slots"] for p in plans]),
+            "slot_ptr": ptrs("slot_ptr"), "part_ptr": ptrs("part_ptr"),
+            "part_row": np.concatenate([p["part_row"] for p in plans])}
 
 
 def value_patch_plan(plan: dict, nnz_per_step: int, slots, vals):

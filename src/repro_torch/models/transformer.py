@@ -98,13 +98,13 @@ class ModelConfig:
 
 
 #: layer kinds of the JAX package not ported yet, with the ROADMAP item
-#: (queue 1, item 1, step n) that ports them
+#: (queue 1, item 8, step n) that ports them
 _LATER = {
-    "attn_moe": "ROADMAP.md queue 1, item 1.1 (attn_moe: models/moe.py)",
-    "xattn": "ROADMAP.md queue 1, item 1.2 (enc/xattn: whisper)",
-    "enc": "ROADMAP.md queue 1, item 1.2 (enc/xattn: whisper)",
-    "rglru": "ROADMAP.md queue 1, item 1.3 (rglru: recurrentgemma)",
-    "rwkv": "ROADMAP.md queue 1, item 1.4 (rwkv6)",
+    "attn_moe": "ROADMAP.md queue 1, item 8.1 (attn_moe: models/moe.py)",
+    "xattn": "ROADMAP.md queue 1, item 8.2 (enc/xattn: whisper)",
+    "enc": "ROADMAP.md queue 1, item 8.2 (enc/xattn: whisper)",
+    "rglru": "ROADMAP.md queue 1, item 8.3 (rglru: recurrentgemma)",
+    "rwkv": "ROADMAP.md queue 1, item 8.4 (rwkv6)",
 }
 
 

@@ -2,7 +2,7 @@
 
 One import point for the GCN serving stack, as ``repro.serving`` has it:
 
-* ``GCNServingEngine`` — the deadline-aware engine (one device), with
+* ``GCNServingEngine`` — the mesh-wide, deadline-aware engine, with
   ``GCNServingEngine(policy=...)`` as the scheduling seam, and the
   ``AdmitReport``/``UpdateReport`` of ``add_graph``/``update_graph``;
 * ``SchedulingPolicy`` / ``HeuristicPolicy`` / ``LearnedServiceTimePolicy``

@@ -1,10 +1,11 @@
-"""Deadline-aware GCN serving engine on the tuning store, on one device.
+"""Mesh-wide, deadline-aware GCN serving engine on the tuning store.
 
 The port of ``repro.serving.gcn_engine``. A serving system holds *many*
 graphs — one converged configuration each — and rotates them through
-bounded device memory. ``GCNServingEngine`` composes the tuning subsystem
-into that shape on one device (the card by default, ``device="cpu"`` for
-the host):
+bounded device memory across a mesh. ``GCNServingEngine`` composes the
+tuning subsystem into that shape, on one device (the card by default,
+``device="cpu"`` for the host) or on a mesh (``devices=N``, the first N
+cards, or a list of devices, which may name one device more than once):
 
 * **Warm starts.** ``add_graph`` keys the ``TuningStore`` by graph
   fingerprint, probe width, device kind and mesh; a hit deserializes the
@@ -15,6 +16,21 @@ the host):
   winner; the sweep's losing candidates are released from the registry so
   their uploads do not pin device memory. A corrupted entry is dropped and
   re-tuned, never crashed on.
+* **Mesh placement.** A ``serving.placement.MeshPlacer`` bin-packs each
+  graph onto one mesh position (worst-fit by footprint, per-position LRU
+  byte budgets). A graph whose footprint estimate exceeds one position's
+  budget takes the **sharded route**: a ``ShardedScheduleExecutor`` over
+  the whole mesh, tuned and stored at the mesh's width. When eviction
+  pressure concentrates on one position, the placer nominates a migration
+  and the engine moves a resident graph to the coolest position.
+* **Multi-replica hot graphs.** When one graph saturates its position —
+  per-request service-time EWMA × queue depth above ``replicate_after_s`` —
+  the engine clones it onto the coolest position from the converged config
+  and host schedule it already holds (one upload, zero sweeps, zero
+  rebuilds). Batches then split across replicas (least outstanding work
+  first) and the sub-batches run on a thread pool of ``n_devices``
+  workers; a failed sub-batch retries on a sibling clone, which gives the
+  same bits. When pressure subsides the replica set shrinks back.
 * **Deadline-aware batching.** ``submit(graph_id, x, deadline_s=...)``
   queues a request; queues auto-flush when a graph reaches ``max_batch``,
   and ``poll()`` serves every queue whose earliest deadline is due
@@ -40,18 +56,15 @@ the host):
 * **Overload and faults.** ``submit`` returns a typed ``SubmitTicket``;
   ``max_queue_depth`` rejects overflow and ``shed_unmeetable`` sheds
   requests whose deadline the predicted wait already rules out. Transient
-  dispatch failures retry with bounded exponential backoff; a request that
-  still cannot be served surfaces as a typed failure with every counter and
-  outstanding-work meter consistent. ``core.executor.FAULTS`` is the test
-  seam that injects failures.
+  dispatch failures retry with bounded exponential backoff, a failed
+  replica chunk retries on its siblings; a request that still cannot be
+  served surfaces as a typed failure with every counter and outstanding-work
+  meter consistent. ``core.executor.FAULTS`` is the test seam that injects
+  failures (``"dispatch"``, ``"replica_chunk"``, ``"upload"``).
 
-Every scheduling choice — placement, shedding, queue ordering and dueness —
-goes through the ``serving.policy.SchedulingPolicy`` seam.
-
-Not ported yet, and raising ``NotImplementedError`` (ROADMAP queue 1, item
-5b): more than one device, and with it the sharded route, replicas across
-cards, migration and rebalance; sibling-replica retry and the recovery
-ladder.
+Every scheduling choice — placement, replica growth and shrinkage,
+shedding, queue ordering and dueness — goes through the
+``serving.policy.SchedulingPolicy`` seam.
 
 The engine bypasses ``tuning.registry``'s unbounded fingerprint caches for
 its executors — eviction must actually free device memory, so the engine's
@@ -65,6 +78,7 @@ import queue as queue_mod
 import threading
 import time
 from collections import OrderedDict, deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -74,6 +88,7 @@ from repro_torch.core import csc as fmt
 from repro_torch.core.executor import (
     FAULTS,
     ScheduleExecutor,
+    ShardedScheduleExecutor,
     release_device_steps,
     repaired_executor,
     value_patched_executor,
@@ -84,15 +99,23 @@ from repro_torch.core.schedule import (
     slot_entry_keys,
     value_patch_schedule,
 )
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, resolve_mesh
 from repro_torch.serving.errors import (  # noqa: F401 — historical import path
     FlushError,
     RequestFailure,
     ServingError,
     UnknownGraphError,
 )
-from repro_torch.serving.placement import MeshPlacer, Placement
+from repro_torch.serving.placement import (
+    REPLICATED,
+    SHARDED,
+    SINGLE,
+    MeshPlacer,
+    Placement,
+)
 from repro_torch.serving.policy import (
+    GROW,
+    SHRINK,
     GraphState,
     HeuristicPolicy,
     PolicyState,
@@ -100,16 +123,14 @@ from repro_torch.serving.policy import (
     absorb_load,
 )
 from repro_torch.serving.types import ACCEPTED, REJECTED, SHED, SubmitTicket
-from repro_torch.tuning import registry, runner
+from repro_torch.tuning import registry, runner, space
 from repro_torch.tuning.space import TunedConfig
 from repro_torch.tuning.store import TuningStore, device_count
 
 #: pre-tune footprint estimate: ~16 bytes per non-zero covers the gather
-#: path's 12 bytes/slot plus schedule padding slack
+#: path's 12 bytes/slot plus schedule padding slack — only used to route
+#: giant graphs to the sharded path before their schedule exists
 _BYTES_PER_NNZ_EST = 16
-
-#: what the single-device engine leaves to the multi-device half of the port
-_PART_2 = "is not ported yet (ROADMAP queue 1, item 5b: the multi-device engine)"
 
 #: bounded reservoir of recent per-request latencies (seconds) backing
 #: the p50/p95/p99 percentiles in ``stats()``.
@@ -135,8 +156,8 @@ _sleep = time.sleep
 
 @dataclasses.dataclass
 class _PartFailure:
-    """One sub-batch that stayed failed: the request-order slice it
-    covered and the final exception."""
+    """One sub-batch that stayed failed after sibling retries: the
+    request-order slice it covered and the final exception."""
     offset: int
     n: int
     exc: Exception
@@ -150,7 +171,7 @@ class AdmitReport:
     tune_seconds: float  # 0.0 on the warm path
     device_bytes: int  # resident footprint (schedule + weights)
     config: TunedConfig
-    placement: Placement  # which device the graph serves from
+    placement: Placement  # which device(s) the graph serves from
 
 
 @dataclasses.dataclass
@@ -196,26 +217,32 @@ class _Request:
 
 @dataclasses.dataclass
 class _Unit:
-    """The device-resident serving copy of a graph: its executor and its
-    uploaded weights."""
-    device_index: int
-    executor: ScheduleExecutor
+    """One device-resident serving clone of a graph (the primary or a
+    replica): its executor and its uploaded weights; the executor's
+    ``forward_batch`` serves batches through them."""
+    device_index: Optional[int]  # None: sharded (spans the mesh)
+    executor: object
     params: dict
     bytes: int
 
 
 @dataclasses.dataclass
 class _Part:
-    """One dispatched batch: the logits ``out`` being computed and the
-    CUDA ``event`` recorded after its launches (None on the host). ``est``
-    is the outstanding-work charge held against ``device_index`` until
-    completion; ``offset`` maps a failure back to the request-order slice
-    it covered."""
-    device_index: int
+    """One dispatched sub-batch of a serve call: launched on this thread
+    (``out``, with the CUDA ``event`` recorded after its launches; None on
+    the host) or a thread-pool ``future`` when the batch split across
+    replicas. ``est`` is the outstanding-work charge held against
+    ``device_index`` until completion. ``unit``/``chunk``/``offset`` let the
+    completion path retry this exact sub-batch on a sibling replica and map
+    a terminal failure back to the request-order slice it covered."""
+    device_index: Optional[int]
     n: int
     est: float
     out: object = None
     event: object = None
+    future: object = None
+    unit: Optional[_Unit] = None
+    chunk: object = None
     offset: int = 0
 
 
@@ -227,9 +254,14 @@ class _Resident:
     sched: Schedule  # host copy — survives eviction
     params_host: dict  # host copy — survives eviction
     params: Optional[dict] = None  # device weights; guarded-by: _swap_lock
-    #: the graph's ScheduleExecutor (None while evicted)
-    executor: Optional[ScheduleExecutor] = None  # guarded-by: _swap_lock
+    #: ScheduleExecutor or ShardedScheduleExecutor (None while evicted)
+    executor: Optional[object] = None  # guarded-by: _swap_lock
     bytes: int = 0  # schedule + weight device bytes; guarded-by: _swap_lock
+    #: secondary replicas by device index (the primary lives in the
+    #: fields above, on the placement's ``device_index``)
+    replicas: Dict[int, _Unit] = dataclasses.field(
+        default_factory=dict
+    )  # guarded-by: _swap_lock
     # ---- streaming-update state (DESIGN.md §11) ----
     #: host COO of the graph as currently served (PAD-stripped, row-major)
     #: — the base ``update_graph`` applies edge deltas to; its size feeds
@@ -310,21 +342,31 @@ def _host_params(params: dict) -> dict:
 
 
 class GCNServingEngine:
-    """Serve batched GCN inference over many resident graphs on one device.
+    """Serve batched GCN inference over many resident graphs on a mesh.
 
-    ``device`` (default: the card) is where every graph serves; pass
-    ``device="cpu"`` for the host. ``devices`` keeps the reference's mesh
-    argument: None or 1 (or a one-device list) is this engine; more devices
-    raise ``NotImplementedError`` until the multi-device half of the port.
+    ``devices`` selects the mesh: None (default) serves on ``device`` (the
+    card by default; ``device="cpu"`` for the host); an int ``n`` takes the
+    first ``n`` devices of ``device``'s kind (the cards; the host has one);
+    a list of devices uses those, one mesh position each, and may name one
+    device more than once (``["cpu"] * 8``, ``["cuda:0"] * 4``). With a
+    multi-position mesh, each admitted graph is bin-packed onto one position
+    (``serving.placement.MeshPlacer``), graphs too big for any single
+    position's ``device_budget_bytes`` serve through a
+    ``ShardedScheduleExecutor`` spanning the whole mesh, and a graph hot
+    enough to saturate its position replicates onto up to ``max_replicas``
+    positions (grown when its queue backlog — per-request service-time EWMA
+    × queue depth — exceeds ``replicate_after_s`` seconds; shrunk after
+    ``replica_shrink_after`` consecutive calm ``poll``s below a quarter of
+    that).
 
-    ``device_budget_bytes`` bounds the device's resident schedule+weight
+    ``device_budget_bytes`` bounds each position's resident schedule+weight
     bytes; the graph being served is always kept resident, even if it
     alone exceeds the budget (a budget smaller than one graph cannot be
     honoured — it degrades to one-graph-at-a-time rotation).
 
     ``policy`` plugs a ``serving.policy.SchedulingPolicy`` into every
-    scheduling choice point — admission placement, submit-time and
-    dispatch-time shedding, and queue ordering/dueness. The default
+    scheduling choice point — admission placement, replica grow/shrink,
+    submit-time and dispatch-time shedding, and queue ordering/dueness. The default
     ``HeuristicPolicy()`` reproduces the reference engine's behaviour
     decision for decision; ``LearnedServiceTimePolicy()`` swaps the EWMA
     service-time model for an online-fitted predictor.
@@ -338,9 +380,8 @@ class GCNServingEngine:
     with exponential backoff starting at ``retry_backoff_s`` seconds
     (validation errors never retry). ``repair_drift_threshold`` bounds the
     cumulative delta entries, as a share of the nnz at the last full tune,
-    that ``update_graph`` repairs before it re-tunes. The replication and
-    rebalance knobs are accepted and validated as the reference does; they
-    act in the multi-device engine only.
+    that ``update_graph`` repairs before it re-tunes. ``rebalance_after``
+    is the placer's migration threshold.
     """
 
     def __init__(
@@ -379,6 +420,8 @@ class GCNServingEngine:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         self.devices = self._resolve_devices(devices, device)
         self.n_devices = len(self.devices)
+        #: the sharded route's mesh (None on one device)
+        self._mesh = self.devices if self.n_devices > 1 else None
         self.placer = MeshPlacer(
             self.n_devices, self.device_budget_bytes, rebalance_after=rebalance_after
         )
@@ -409,10 +452,10 @@ class GCNServingEngine:
                 f"{repair_drift_threshold}"
             )
         self.repair_drift_threshold = float(repair_drift_threshold)
-        #: serializes publication of a graph's state (executor, weights,
-        #: bytes, schedule, revision) against the snapshots dispatches take
-        #: of it — the zero-gap guarantee of ``update_graph``: a dispatch
-        #: sees the whole old executor or the whole new one
+        #: serializes publication of a graph's state (executor set, weights,
+        #: bytes, schedule, revision) against the unit snapshots dispatches
+        #: take of it — the zero-gap guarantee of ``update_graph``: a
+        #: dispatch sees the whole old executor set or the whole new one
         self._swap_lock = threading.Lock()
         #: async schedule-persist pipeline: content fingerprint + store
         #: write of a repaired revision run on a worker thread, off the
@@ -423,7 +466,7 @@ class GCNServingEngine:
         )
         self._persist_spawn_lock = threading.Lock()
         self._autotune_kwargs = dict(autotune_kwargs or {})
-        reserved = {"max_devices", "store", "device"} & set(self._autotune_kwargs)
+        reserved = {"max_devices", "store", "device", "mesh"} & set(self._autotune_kwargs)
         if reserved:
             raise ValueError(
                 f"autotune_kwargs may not override {sorted(reserved)}: the "
@@ -438,9 +481,14 @@ class GCNServingEngine:
         self._ready: Dict[str, List[torch.Tensor]] = {}
         self._svc_ewma: Dict[str, float] = {}  # per-graph batch seconds
         #: per-graph per-*request* EWMA seconds — the saturation signal
+        #: (× queue depth = backlog a single replica would need)
         self._svc_req_ewma: Dict[str, float] = {}
-        #: device index → estimated seconds of dispatched-but-incomplete work
+        #: consecutive calm polls per replicated graph (shrink hysteresis)
+        self._calm_polls: Dict[str, int] = {}
+        #: device index → estimated seconds of dispatched-but-incomplete
+        #: work (the least-outstanding-work replica balancer's meter)
         self._dev_outstanding: Dict[int, float] = {}
+        self._pool: Optional[ThreadPoolExecutor] = None
         self._next_rid = 0
         self.device_bytes_in_use = 0
         self._lat_n, self._lat_total, self._lat_max = 0, 0.0, 0.0
@@ -451,8 +499,7 @@ class GCNServingEngine:
         #   submitted == queue_served + shed + rejected + dropped + pending
         # (`requests` also counts direct serve_batch work, so the queue
         # path gets its own served counter; `dropped` settles requests a
-        # remove_graph failed while still queued). Every counter of the
-        # reference is kept; those of the multi-device engine stay at zero.
+        # remove_graph failed while still queued)
         self.counters = {
             "store_hits": 0,
             "store_misses": 0,
@@ -479,26 +526,26 @@ class GCNServingEngine:
 
     @staticmethod
     def _resolve_devices(devices, device) -> List[torch.device]:
-        """The engine's one device from the reference's ``devices`` mesh
-        argument and the port's ``device``."""
+        """The engine's mesh positions from the reference's ``devices``
+        argument and the port's ``device``: ``devices=N`` takes the first N
+        devices of ``device``'s kind (``cuda:0`` … on the cards; the host
+        counts one), a list names the positions itself."""
         if devices is None or isinstance(devices, int):
             dev = resolve_device(device)
-            if devices is not None:
-                avail = max(1, device_count(dev))
-                if not 1 <= devices <= avail:
-                    raise ValueError(
-                        f"devices={devices} but this host exposes "
-                        f"{avail} device(s)"
-                    )
-                if devices > 1:
-                    raise NotImplementedError(f"a mesh of {devices} devices {_PART_2}")
-            return [dev]
-        devices = list(devices)
+            if devices is None:
+                return [dev]
+            avail = max(1, device_count(dev))
+            if not 1 <= devices <= avail:
+                raise ValueError(
+                    f"devices={devices} but this host exposes "
+                    f"{avail} device(s)"
+                )
+            if devices == 1:
+                return [dev]
+            return [torch.device("cuda", i) for i in range(devices)]
         if device is not None:
             raise ValueError("pass devices or device, not both")
-        if len(devices) != 1:
-            raise NotImplementedError(f"a mesh of {len(devices)} devices {_PART_2}")
-        return [resolve_device(devices[0])]
+        return resolve_mesh(mesh=list(devices))
 
     # ---- policy state snapshot ---------------------------------------------
 
@@ -526,7 +573,7 @@ class GCNServingEngine:
             earliest_deadline=_earliest_deadline(q),
             svc_ewma=self._svc_ewma.get(gid, 0.0),
             svc_req_ewma=self._svc_req_ewma.get(gid, 0.0),
-            calm_polls=0,  # replica hysteresis: the multi-device engine
+            calm_polls=self._calm_polls.get(gid, 0),
         )
 
     def _policy_state(self, now: Optional[float] = None) -> PolicyState:
@@ -566,36 +613,70 @@ class GCNServingEngine:
         weights = sum(int(w.nbytes) for w in _host_params(params).values())
         return nnz * _BYTES_PER_NNZ_EST + weights
 
+    def _sharded_autotune_kwargs(self, a: fmt.COO) -> dict:
+        """The autotune kwargs of the sharded route: every sweep candidate
+        pinned to the full mesh width (a caller-supplied sweep keeps its
+        geometries; the default uses the sharded gather candidates)."""
+        kw = dict(self._autotune_kwargs)
+        base = kw.pop("sweep", None)
+        if base is None:
+            # force=True: this route exists because the graph does NOT fit
+            # one position — the perf-elective minimum-work gate
+            # (space.sharded_worth_it) must not empty the sweep here
+            kw["sweep"] = space.sharded_sweep(a, (self.n_devices,), force=True)
+        else:
+            kw["sweep"] = [dict(c, n_devices=self.n_devices) for c in base]
+        return kw
+
+    def _route(self, a: fmt.COO, sharded: bool) -> Tuple[dict, int]:
+        """``(autotune kwargs, max_devices)`` of a route."""
+        if sharded:
+            return self._sharded_autotune_kwargs(a), self.n_devices
+        return self._autotune_kwargs, 1
+
+    def _store_key(self, fingerprint: str, kdim: int, a: fmt.COO, sharded: bool) -> str:
+        tune_kw, max_devices = self._route(a, sharded)
+        return runner.store_key(self.store, fingerprint, kdim, max_devices=max_devices,
+                                device=self.devices[0], mesh=self._mesh, **tune_kw)
+
+    def _tune(self, a: fmt.COO, kdim: int, sharded: bool) -> TunedConfig:
+        """The measured sweep of one route on the engine's devices (the
+        result persists in the engine's store)."""
+        tune_kw, max_devices = self._route(a, sharded)
+        return runner.autotune(a, (a.shape[1], kdim), max_devices=max_devices,
+                               store=self.store, device=self.devices[0],
+                               mesh=self._mesh, **tune_kw)
+
     def add_graph(
         self, graph_id: str, a: fmt.COO, params: dict, *, kdim: Optional[int] = None
     ) -> AdmitReport:
         """Register a graph + trained weights and make it servable.
 
-        The single-device route of the reference: the store key and the
-        sweep are pinned to one device. A store hit adopts the entry's
-        permutation and schedule (no sweep, no rebuild); a miss runs the
-        measured sweep on the engine's device, persists the winner and
-        releases the graph from the registry's caches. Then the graph is
-        placed and uploaded. ``kdim`` is the tuning probe width; it
-        defaults to the first layer's output width."""
+        The routing decision tree: estimate the footprint; if it exceeds
+        one position's budget on a multi-position mesh, the graph takes the
+        **sharded route** (store key + sweep at the full mesh width),
+        otherwise the **single-device route** (store key + sweep pinned to
+        one device, then bin-packed placement). Either route warm-starts
+        from the store when populated: the entry's permutation and schedule
+        are adopted (no sweep, no rebuild); a miss runs the measured sweep,
+        persists the winner and releases the graph from the registry's
+        caches. ``kdim`` is the tuning probe width; it defaults to the first
+        layer's output width."""
         if graph_id in self._graphs:
             raise ValueError(f"graph {graph_id!r} already registered")
         if kdim is None:
             kdim = int(params["w0"].shape[1])
-        dev = self.devices[0]
         fp = registry.graph_fingerprint(a)
         est = self._estimate_bytes(a, params)
-        tune_kw = self._autotune_kwargs
-        key = runner.store_key(
-            self.store, fp, kdim, max_devices=1, device=dev, **tune_kw
-        )
+        sharded_route = est > self.device_budget_bytes and self.n_devices > 1
+        key = self._store_key(fp, kdim, a, sharded_route)
         t0 = time.perf_counter()
         entry = self.store.load(key)
         warm = entry is not None
         if warm:
             self._count("store_hits")
             cfg, sched, perm = entry
-            self._check_route(graph_id, cfg, "stored")
+            self._check_route(graph_id, cfg, sharded_route, "stored")
             # the entry's permutation is adopted verbatim — it is the one
             # the persisted schedule was built under
             registry.adopt_reorder(fp, cfg.reorder, perm)
@@ -603,21 +684,15 @@ class GCNServingEngine:
             tune_s = 0.0
         else:
             self._count("store_misses")
-            cfg = runner.autotune(
-                a,
-                (a.shape[1], kdim),
-                max_devices=1,
-                store=self.store,
-                device=dev,
-                **tune_kw,
-            )
-            self._check_route(graph_id, cfg, "tuned")
+            cfg = self._tune(a, kdim, sharded_route)
+            self._check_route(graph_id, cfg, sharded_route, "tuned")
             sched = registry.get_schedule(a, **cfg.as_schedule_kwargs(), fingerprint=fp)
             perm, inv = registry.get_reorder(a, cfg.reorder, fingerprint=fp)
             # release the graph from the registry's unbounded caches: the
             # sweep's losing candidate executors must not pin device
-            # memory, and this engine's budget becomes the only thing
-            # keeping anything resident (perm/inv above are plain refs)
+            # memory, and this engine's per-position budgets become the
+            # only thing keeping anything resident (perm/inv above are
+            # plain refs)
             registry.release_graph(fp)
             tune_s = time.perf_counter() - t0
         # host-resident base for streaming updates: PAD-stripped numpy
@@ -658,8 +733,16 @@ class GCNServingEngine:
             placement=placement,
         )
 
-    def _check_route(self, graph_id: str, cfg: TunedConfig, origin: str) -> None:
-        if cfg.n_devices is not None:
+    def _check_route(self, graph_id: str, cfg: TunedConfig, sharded_route: bool,
+                     origin: str) -> None:
+        if sharded_route:
+            if cfg.n_devices != self.n_devices:
+                raise ValueError(
+                    f"graph {graph_id!r} takes the sharded route on this "
+                    f"{self.n_devices}-device mesh, but the {origin} config "
+                    f"requests n_devices={cfg.n_devices}"
+                )
+        elif cfg.n_devices is not None:
             raise ValueError(
                 f"graph {graph_id!r} takes the single-device route, but "
                 f"the {origin} config requests n_devices={cfg.n_devices} — "
@@ -667,7 +750,7 @@ class GCNServingEngine:
             )
 
     def remove_graph(self, graph_id: str) -> None:
-        """Drop a graph entirely: executor, placement, queues.
+        """Drop a graph entirely: executors, replicas, placement, queues.
 
         Pending queued requests cannot be served once the graph is gone;
         silently discarding them would break the accounting identity
@@ -678,10 +761,15 @@ class GCNServingEngine:
         if graph_id not in self._graphs:
             raise UnknownGraphError(graph_id, "remove_graph")
         rec = self._graphs.pop(graph_id)
+        with self._swap_lock:
+            replica_devs = list(rec.replicas)
+        for d in replica_devs:
+            self._drop_replica(rec, d, shrink=False)
         dropped = self._pending.pop(graph_id, None) or []
         self._ready.pop(graph_id, None)
         self._svc_ewma.pop(graph_id, None)
         self._svc_req_ewma.pop(graph_id, None)
+        self._calm_polls.pop(graph_id, None)
         with self._swap_lock:
             freed = rec.bytes if rec.executor is not None else 0
             rec.executor = None
@@ -703,35 +791,43 @@ class GCNServingEngine:
     def _weight_bytes(params: dict) -> int:
         return sum(int(w.nbytes) for w in params.values())
 
-    def _fresh_executor(self, sched: Schedule, cfg: TunedConfig, device_index: int,
-                        row_unperm: Optional[np.ndarray] = None) -> ScheduleExecutor:
-        """Cold executor for the graph's serving copy (the re-tune
-        fallback's builder — full plan and upload)."""
-        return ScheduleExecutor(
-            sched,
-            ktile=cfg.ktile,
-            routing=cfg.routing,
-            bf16_accumulate=cfg.bf16_accumulate,
-            device=self.devices[device_index],
-            row_unperm=row_unperm,
-        )
+    def _fresh_executor(self, sched: Schedule, cfg: TunedConfig,
+                        device_index: Optional[int],
+                        row_unperm: Optional[np.ndarray] = None):
+        """Cold executor for one serving clone — full plan and upload, as
+        the re-tune fallback and every new clone need; ``device_index``
+        None: sharded, over the mesh."""
+        kw = dict(ktile=cfg.ktile, routing=cfg.routing,
+                  bf16_accumulate=cfg.bf16_accumulate, row_unperm=row_unperm)
+        if device_index is None:
+            return ShardedScheduleExecutor(sched, mesh=self._mesh, **kw)
+        return ScheduleExecutor(sched, device=self.devices[device_index],
+                                position=self._position(device_index), **kw)
 
-    def _rebuilt_units(self, rec: _Resident, p: Placement, build) -> _Unit:
-        """New executor for the graph's serving copy via
-        ``build(old_executor, device_index)``. Runs *outside* the swap
-        lock: device memory transiently holds old and new copies while
-        in-flight batches keep serving on the old executor. Weights are
-        reused in place (an edge delta never changes them)."""
+    def _rebuilt_units(self, rec: _Resident, p: Placement, build):
+        """New executor for every resident clone of one graph — primary and
+        secondary replicas — via ``build(old_executor, device_index)``. Runs
+        *outside* the swap lock: device memory transiently holds old and new
+        copies while in-flight batches keep serving on the old executors.
+        Weights are reused in place (an edge delta never changes them)."""
         with self._swap_lock:
             old_ex, params = rec.executor, rec.params
-        ex = build(old_ex, p.device_index)
-        return _Unit(p.device_index, ex, params,
-                     ex.device_bytes + self._weight_bytes(params))
+            old_reps = dict(rec.replicas)
+        primary_dev = None if p.kind == SHARDED else p.device_index
+        ex = build(old_ex, primary_dev)
+        primary = _Unit(primary_dev, ex, params,
+                        ex.device_bytes + self._weight_bytes(params))
+        reps = {}
+        for d, unit in old_reps.items():
+            rex = build(unit.executor, d)
+            reps[d] = _Unit(d, rex, unit.params,
+                            rex.device_bytes + self._weight_bytes(unit.params))
+        return primary, reps
 
     def _swap_in(
         self,
         rec: _Resident,
-        unit: Optional[_Unit],
+        units,
         *,
         coo,
         per_row,
@@ -746,10 +842,11 @@ class GCNServingEngine:
         inv=_KEEP,
     ) -> int:
         """Atomically publish a graph's new host state and (when resident)
-        its rebuilt executor — the versioned swap protocol: new dispatches
-        snapshot the new executor, in-flight batches finish on the old one
-        (their launches already hold its arrays), and no request ever
-        observes a missing executor.
+        its rebuilt executor set ``units`` (``(primary, replicas)``) — the
+        versioned swap protocol: new dispatches snapshot the new units,
+        in-flight batches finish on the old executors (their launches
+        already hold its arrays), and no request ever observes a missing
+        executor.
 
         ``fingerprint=None`` defers the content fingerprint: the async
         persist worker fills it in (under this same lock) once computed,
@@ -760,7 +857,7 @@ class GCNServingEngine:
         Returns the new revision."""
         old_sched = rec.sched
         with self._swap_lock:
-            resident = rec.executor is not None and unit is not None
+            resident = rec.executor is not None and units is not None
             rec.coo = coo
             rec.per_row = per_row
             rec.sched = sched
@@ -782,15 +879,18 @@ class GCNServingEngine:
                 rec.orig_nnz = int(coo.row.shape[0])
                 rec.drift_nnz = 0
             if resident:
-                old_total = rec.bytes
+                primary, reps = units
+                old_total = rec.bytes + sum(u.bytes for u in rec.replicas.values())
                 rec.executor, rec.params, rec.bytes = (
-                    unit.executor, unit.params, unit.bytes)
+                    primary.executor, primary.params, primary.bytes)
+                rec.replicas = reps
+                new_total = primary.bytes + sum(u.bytes for u in reps.values())
         # old-schedule cleanup + byte accounting happen outside the lock:
         # they touch no field a dispatch snapshot reads
         release_device_steps(old_sched)
         if resident:
-            self.placer.reaccount(rec.graph_id, unit.bytes)
-            self.device_bytes_in_use += unit.bytes - old_total
+            self.placer.reaccount(rec.graph_id, primary.bytes)
+            self.device_bytes_in_use += new_total - old_total
             self._evict_over_budget(keep=rec.graph_id)
         return revision
 
@@ -818,9 +918,11 @@ class GCNServingEngine:
         of the mutated graph (measured sweep unless the store already holds
         the answer), published through the same swap protocol.
 
-        An **evicted** graph updates host-side only (COO, histogram,
-        schedule, lineage); its next re-admission uploads the repaired
-        schedule fresh. Weights are untouched either way. Raises
+        Every resident clone — the primary and each replica, or the sharded
+        executor, which re-uploads only the positions whose steps changed —
+        is spliced. An **evicted** graph updates host-side only (COO,
+        histogram, schedule, lineage); its next re-admission uploads the
+        repaired schedule fresh. Weights are untouched either way. Raises
         ``UnknownGraphError`` for an unknown graph and ``ValueError`` for an
         out-of-bounds delta (state unchanged)."""
         rec = self._graphs.get(graph_id)
@@ -875,13 +977,13 @@ class GCNServingEngine:
             new_sched, slots = patched
             with self._swap_lock:
                 resident = rec.executor is not None
-            unit = None
+            units = None
             if resident:
-                unit = self._rebuilt_units(
+                units = self._rebuilt_units(
                     rec, p, lambda old_ex, _d: value_patched_executor(
                         old_ex, new_sched, slots, new_sched.val[slots]))
             revision = self._swap_in(
-                rec, unit, coo=new_coo, per_row=per_row, sched=new_sched,
+                rec, units, coo=new_coo, per_row=per_row, sched=new_sched,
                 fingerprint=None, lineage=lineage, keep_slot_cache=True, pcoo=new_pcoo)
             self._enqueue_persist(rec, new_coo, rec.config, new_sched)
             nw = new_sched.n_windows
@@ -897,7 +999,7 @@ class GCNServingEngine:
                 steps_reused=new_sched.n_steps,
                 windows_reused=nw,
                 windows_total=nw,
-                scoped_upload=unit is not None and unit.executor.scoped_upload,
+                scoped_upload=units is not None and units[0].executor.scoped_upload,
                 fell_back=False,
             )
         new_sched, stats = repair_schedule(
@@ -911,11 +1013,11 @@ class GCNServingEngine:
         )
         with self._swap_lock:
             resident = rec.executor is not None
-        unit = None
+        units = None
         if resident:
-            unit = self._rebuilt_units(
+            units = self._rebuilt_units(
                 rec, p, lambda old_ex, _d: repaired_executor(old_ex, new_sched, stats))
-        revision = self._swap_in(rec, unit, coo=new_coo, per_row=per_row,
+        revision = self._swap_in(rec, units, coo=new_coo, per_row=per_row,
                                  sched=new_sched, fingerprint=None, lineage=lineage,
                                  pcoo=new_pcoo)
         self._enqueue_persist(rec, new_coo, rec.config, new_sched)
@@ -931,7 +1033,7 @@ class GCNServingEngine:
             steps_reused=int(stats.steps_reused),
             windows_reused=int(stats.windows_reused),
             windows_total=int(stats.windows_total),
-            scoped_upload=unit is not None and unit.executor.scoped_upload,
+            scoped_upload=units is not None and units[0].executor.scoped_upload,
             fell_back=bool(stats.fell_back),
         )
 
@@ -943,10 +1045,12 @@ class GCNServingEngine:
         computes), so a restart warm-starts the repaired state with zero
         sweeps and zero rebuilds. The key names the device by its kind,
         which the card reports from a cache after the engine's first store
-        key: the worker launches nothing and allocates nothing there."""
-        key = runner.store_key(self.store, fingerprint, rec.kdim, max_devices=1,
-                               device=self.devices[0], **self._autotune_kwargs)
-        self.store.save(key, cfg, sched, perm)
+        key: the worker launches nothing and allocates nothing there. A
+        sharded graph files under the sharded route's key."""
+        p = self.placer.placement_of(rec.graph_id)
+        sharded = p is not None and p.kind == SHARDED
+        self.store.save(self._store_key(fingerprint, rec.kdim, coo, sharded),
+                        cfg, sched, perm)
 
     def _enqueue_persist(self, rec: _Resident, coo, cfg: TunedConfig,
                          sched: Schedule) -> None:
@@ -1019,43 +1123,33 @@ class GCNServingEngine:
         baseline."""
         self._count("update_retunes")
         gid = rec.graph_id
-        dev = self.devices[0]
         fp2 = registry.graph_fingerprint(new_coo)
-        tune_kw = self._autotune_kwargs
-        key = runner.store_key(self.store, fp2, rec.kdim, max_devices=1, device=dev,
-                               **tune_kw)
-        entry = self.store.load(key)
+        p = self.placer.placement_of(gid)
+        sharded = p is not None and p.kind == SHARDED
+        entry = self.store.load(self._store_key(fp2, rec.kdim, new_coo, sharded))
         if entry is not None:
             self._count("store_hits")
             cfg, sched, perm2 = entry
-            self._check_route(gid, cfg, "stored")
+            self._check_route(gid, cfg, sharded, "stored")
             registry.adopt_reorder(fp2, cfg.reorder, perm2)
             perm2, inv2 = registry.get_reorder(new_coo, cfg.reorder, fingerprint=fp2)
         else:
             self._count("store_misses")
-            cfg = runner.autotune(
-                new_coo,
-                (new_coo.shape[1], rec.kdim),
-                max_devices=1,
-                store=self.store,
-                device=dev,
-                **tune_kw,
-            )
-            self._check_route(gid, cfg, "tuned")
+            cfg = self._tune(new_coo, rec.kdim, sharded)
+            self._check_route(gid, cfg, sharded, "tuned")
             sched = registry.get_schedule(new_coo, **cfg.as_schedule_kwargs(),
                                           fingerprint=fp2)
             perm2, inv2 = registry.get_reorder(new_coo, cfg.reorder, fingerprint=fp2)
             registry.release_graph(fp2)
         with self._swap_lock:
             resident = rec.executor is not None
-        unit = None
+        units = None
         if resident:
-            unit = self._rebuilt_units(
-                rec, self.placer.placement_of(gid),
-                lambda _old, d: self._fresh_executor(sched, cfg, d, inv2))
+            units = self._rebuilt_units(
+                rec, p, lambda _old, d: self._fresh_executor(sched, cfg, d, inv2))
         revision = self._swap_in(
             rec,
-            unit,
+            units,
             coo=new_coo,
             per_row=per_row,
             sched=sched,
@@ -1078,39 +1172,40 @@ class GCNServingEngine:
             update_seconds=time.perf_counter() - t0,
         )
 
-    # ---- residency / eviction ----------------------------------------------
+    # ---- residency / eviction / replication / rebalance --------------------
+
+    def _position(self, device_index: int):
+        """The upload tag of a clone at ``device_index``: on a mesh, its
+        position, so clones on positions that name one device own their
+        uploads apart; on one device None, so the engine's upload is the
+        one the registry and kernel paths share."""
+        return device_index if self.n_devices > 1 else None
 
     def _build_unit(self, rec: _Resident, device_index: int) -> _Unit:
-        """The serving copy of ``rec`` on one device — built from the
-        already-converged config and the host schedule, so it costs one
-        upload and zero sweeps, zero rebuilds."""
-        cfg = rec.config
-        dev = self.devices[device_index]
-        ex = ScheduleExecutor(
-            rec.sched,
-            ktile=cfg.ktile,
-            routing=cfg.routing,
-            bf16_accumulate=cfg.bf16_accumulate,
-            device=dev,
-            row_unperm=rec.inv,
-        )
+        """One serving clone of ``rec`` on a specific mesh position — built
+        from the already-converged config and the host schedule, so it
+        costs one upload and zero sweeps, zero rebuilds (what makes a
+        replica cheap)."""
+        ex = self._fresh_executor(rec.sched, rec.config, device_index, rec.inv)
         params = {
-            name: torch.from_numpy(w).to(dev) for name, w in rec.params_host.items()
+            name: torch.from_numpy(w).to(ex.device)
+            for name, w in rec.params_host.items()
         }
-        nbytes = ex.device_bytes + sum(int(w.nbytes) for w in params.values())
-        return _Unit(device_index, ex, params, nbytes)
+        return _Unit(device_index, ex, params, ex.device_bytes + self._weight_bytes(params))
 
     def _admit(self, rec: _Resident) -> None:
         """Ensure ``rec`` is device-resident on its placement (LRU-touch +
-        budget sweep)."""
+        per-position budget sweep + rebalance check)."""
         with self._swap_lock:
             evicted = rec.executor is None
             first = rec.bytes == 0
         if evicted:
             p = self.placer.placement_of(rec.graph_id)
             # the upload runs outside the swap lock (it is O(bytes) slow);
-            # the unit fields then publish atomically under it
-            unit = self._build_unit(rec, p.device_index)
+            # the unit fields then publish atomically under it; a sharded
+            # graph's weights live on the mesh's first position, where its
+            # dense products run
+            unit = self._build_unit(rec, None if p.kind == SHARDED else p.device_index)
             with self._swap_lock:
                 rec.executor, rec.params, rec.bytes = (
                     unit.executor, unit.params, unit.bytes)
@@ -1120,14 +1215,24 @@ class GCNServingEngine:
                 self._count("readmissions")
         self._graphs.move_to_end(rec.graph_id)
         self._evict_over_budget(keep=rec.graph_id)
+        self._maybe_rebalance(keep=rec.graph_id)
 
-    def _evict(self, rec: _Resident) -> None:
-        """Drop a graph's executor and device weights (their tensors are
+    def _evict(self, rec: _Resident, *, pressure: bool = True) -> None:
+        """Drop a graph's executors and device weights (their tensors are
         freed with the last reference) and the schedule's memoized device
         step arrays; the host schedule, config and weights stay for
-        re-upload."""
-        self.placer.note_eviction(rec.graph_id)
-        self._count("evictions")
+        re-upload. A replicated victim first sheds its secondary replicas
+        (collapsing its placement to SINGLE, so re-admission restores one
+        clone and replication re-grows on demand). ``pressure=False`` is
+        the rebalance migration: it must not feed the pressure counter it
+        answers."""
+        with self._swap_lock:
+            replica_devs = list(rec.replicas)
+        for d in replica_devs:
+            self._drop_replica(rec, d, shrink=False)
+        if pressure:
+            self.placer.note_eviction(rec.graph_id)
+            self._count("evictions")
         self.placer.unaccount(rec.graph_id)
         with self._swap_lock:
             freed = rec.bytes
@@ -1135,21 +1240,115 @@ class GCNServingEngine:
             rec.params = None
         release_device_steps(rec.sched)
         self.device_bytes_in_use -= freed
-        # service EWMAs were measured under this residency; a re-admitted
-        # graph must re-measure instead of shedding requests off stale
-        # predictions
+        # service EWMAs were measured under this residency (device, replica
+        # set, possibly another route after rebalance); a re-admitted graph
+        # must re-measure instead of shedding requests off stale predictions
         self._svc_ewma.pop(rec.graph_id, None)
         self._svc_req_ewma.pop(rec.graph_id, None)
+        self._calm_polls.pop(rec.graph_id, None)
+
+    def _grow_replica(self, rec: _Resident, device_index: Optional[int] = None) -> bool:
+        """Clone ``rec`` onto ``device_index`` (the policy's pick; None
+        falls back to the placer's coolest-fitting candidate — a position
+        that doesn't yet host it AND has budget room for the clone).
+        Replication never evicts resident graphs to make space (a replica
+        is a luxury; forcing it onto a full position would just get it shed
+        by the next budget sweep and re-grown by the next poll). Warm by
+        construction: the clone reuses the converged config and host
+        schedule already in memory, so growth is one upload — no sweep, no
+        rebuild."""
+        with self._swap_lock:
+            resident, nbytes = rec.executor is not None, rec.bytes
+        if not resident:
+            return False
+        d = device_index
+        if d is None:
+            d = self.placer.replica_candidate(rec.graph_id, nbytes)
+        if d is None:
+            return False
+        unit = self._build_unit(rec, d)
+        self.placer.add_replica(rec.graph_id, unit.bytes, device_index=d)
+        with self._swap_lock:
+            rec.replicas[d] = unit
+        self.device_bytes_in_use += unit.bytes
+        self._count("replicas_added")
+        return True
+
+    def _drop_replica(self, rec: _Resident, device_index: int, *,
+                      shrink: bool = True) -> None:
+        """Release one secondary replica: its executor, weights and exactly
+        its own position's memoized uploads (surviving replicas keep
+        theirs)."""
+        with self._swap_lock:
+            unit = rec.replicas.pop(device_index)
+        p = self.placer.drop_replica(rec.graph_id, device_index)
+        release_device_steps(rec.sched, device=self.devices[device_index],
+                             position=self._position(device_index))
+        self.device_bytes_in_use -= unit.bytes
+        if shrink:
+            self._count("replicas_dropped")
+        if p.kind == SINGLE:
+            # collapsed back to one clone: the EWMAs were measured with
+            # batches split across replicas, so they underestimate
+            # single-replica service time — re-measure from scratch
+            self._svc_ewma.pop(rec.graph_id, None)
+            self._svc_req_ewma.pop(rec.graph_id, None)
+
+    def _update_replication(self, now: Optional[float] = None) -> None:
+        """Consult the policy for one grow/shrink/hold step per graph (runs
+        at every ``poll`` and threshold auto-flush).
+
+        The default ``HeuristicPolicy`` signal: **per-request service-time
+        EWMA × queue depth** — the backlog seconds a single replica would
+        need to drain the queue. Above ``replicate_after_s`` the graph grows
+        one replica (onto the coolest fitting position); below a quarter of
+        that for ``replica_shrink_after`` consecutive polls, a replicated
+        graph sheds one (from the fullest position). Sharded graphs never
+        replicate — they already span the mesh. The policy returns the new
+        calm-poll counter; the engine stores it (None clears it). The
+        snapshot is rebuilt per graph: each applied decision changes
+        position occupancy, which the next graph's decision must see."""
+        if self.n_devices < 2:
+            return
+        for gid, rec in list(self._graphs.items()):
+            p = self.placer.placement_of(gid)
+            if p is None or p.kind == SHARDED:
+                continue
+            dec = self.policy.replication(self._policy_state(now), gid)
+            if dec.action == GROW:
+                if dec.device_index is not None:
+                    self._grow_replica(rec, dec.device_index)
+            elif dec.action == SHRINK:
+                self._drop_replica(rec, dec.device_index)
+            if dec.calm_polls is None:
+                self._calm_polls.pop(gid, None)
+            else:
+                self._calm_polls[gid] = int(dec.calm_polls)
 
     def _evict_over_budget(self, keep: str) -> None:
-        """Budget sweep: an over-budget device sheds resident graphs,
-        least-recently-served first, until under budget (the kept graph is
-        never evicted). ``self._graphs`` is maintained in
-        least-recently-*served* order — every serve and (re)admission
+        """Per-position budget sweep: every over-budget position sheds
+        resident graphs, least-recently-served first, until under budget
+        (the kept graph is never evicted). ``self._graphs`` is maintained
+        in least-recently-*served* order — every serve and (re)admission
         ``move_to_end``s its graph — so scanning it front-to-back visits
-        true LRU order, not insertion order."""
+        true LRU order, not insertion order. A replicated victim whose
+        stake on the position is a secondary replica sheds just that
+        replica (cheaper than evicting a whole graph; its other clones
+        keep serving)."""
         for d in range(self.n_devices):
             while self.placer.used[d] > self.placer.budget:
+                with self._swap_lock:
+                    rep = next(
+                        (
+                            r
+                            for r in self._graphs.values()
+                            if r.graph_id != keep and d in r.replicas
+                        ),
+                        None,
+                    )
+                if rep is not None:
+                    self._drop_replica(rep, d)
+                    continue
                 with self._swap_lock:
                     victim = next(
                         (
@@ -1162,8 +1361,36 @@ class GCNServingEngine:
                         None,
                     )
                 if victim is None:
-                    break  # only `keep` holds this device; never evicted
+                    break  # only `keep` holds this position; never evicted
                 self._evict(victim)
+
+    def _maybe_rebalance(self, keep: str) -> None:
+        """When eviction pressure concentrates on one position, migrate its
+        least-recently-served single-device graph to the coolest position
+        (replicated graphs are pinned by their own heat; sharded ones span
+        the mesh — neither migrates)."""
+        target = self.placer.rebalance_target()
+        if target is None:
+            return
+        hot, cool = target
+        victim = next(
+            (
+                r
+                for r in self._graphs.values()
+                if r.graph_id != keep
+                and self.placer.placements[r.graph_id].kind == SINGLE
+                and self.placer.placements[r.graph_id].device_index == hot
+            ),
+            None,
+        )
+        if victim is None:
+            return
+        with self._swap_lock:
+            resident = victim.executor is not None
+        if resident:
+            self._evict(victim, pressure=False)
+        self.placer.move(victim.graph_id, cool)
+        self._count("rebalances")
 
     @property
     def resident_graphs(self) -> List[str]:
@@ -1174,22 +1401,59 @@ class GCNServingEngine:
     def graphs(self) -> List[str]:
         return list(self._graphs)
 
-    # ---- dispatch ----------------------------------------------------------
+    # ---- dispatch machinery (replica routing + threaded execution) ---------
 
-    def _unit(self, rec: _Resident) -> _Unit:
-        """The graph's resident serving copy, snapshotted under the swap
-        lock."""
+    def _units(self, rec: _Resident) -> List[_Unit]:
+        """All resident serving clones of one admitted graph, primary
+        first. Snapshotted under the swap lock: a concurrent
+        ``update_graph`` either hasn't swapped yet (every unit is the old
+        executor set) or has fully swapped (every unit is the new set) —
+        never a mix, and never a missing executor."""
         with self._swap_lock:
             p = self.placer.placement_of(rec.graph_id)
-            return _Unit(p.device_index, rec.executor, rec.params, rec.bytes)
+            primary_dev = None if p.kind == SHARDED else p.device_index
+            primary = _Unit(primary_dev, rec.executor, rec.params, rec.bytes)
+            return [primary] + [rec.replicas[d] for d in sorted(rec.replicas)]
+
+    def _outstanding_key(self, unit: _Unit):
+        d = unit.device_index
+        return (
+            self._dev_outstanding.get(d, 0.0) if d is not None else 0.0,
+            -1 if d is None else d,
+        )
+
+    def _run_unit(self, unit: _Unit, graph_id: str, chunk):
+        """Run one sub-batch on one serving clone to completion — the
+        single execution body behind both the worker-thread path and the
+        sibling-replica retry path (so the ``replica_chunk`` fault seam
+        covers both)."""
+        FAULTS.check("replica_chunk", graph=graph_id, device=unit.device_index)
+        out = unit.executor.forward_batch(unit.params, chunk)
+        _block_until_ready(out)
+        return out
+
+    def _pool_run(self, unit: _Unit, graph_id: str, chunk):
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(
+                max_workers=self.n_devices, thread_name_prefix="awb-replica"
+            )
+        return self._pool.submit(self._run_unit, unit, graph_id, chunk)
 
     def _dispatch_batch(self, graph_id: str, xs) -> List[_Part]:
         """Validate + stack ``xs``, ensure residency (LRU touch, re-upload
-        if evicted) and launch the batch's forward — **counting nothing**:
-        served-work counters and service EWMAs move only when the
-        completion path proves the computation finished. The launches
-        return at once on the card; the event recorded after them is what
-        completion awaits, so batches of several graphs queue back to back."""
+        if evicted), route across replicas, and dispatch — **counting
+        nothing**: served-work counters and service EWMAs move only when
+        the completion path proves the computation finished.
+
+        A single-clone graph launches its forward here (the launches return
+        at once on the card; the event recorded after them is what
+        completion awaits, so batches of several graphs queue back to
+        back). A replicated graph splits the batch into contiguous even
+        chunks — one per replica, least-outstanding-work replicas first —
+        and runs each chunk on a worker thread. Every replica is a
+        bit-identical clone and a request's logits do not depend on the
+        batch it came in (``forward_batch``), so the split is invisible in
+        the logits."""
         rec = self._graphs.get(graph_id)
         if rec is None:
             raise UnknownGraphError(graph_id, "serve")
@@ -1205,16 +1469,32 @@ class GCNServingEngine:
             )
         self._admit(rec)  # LRU touch + re-upload if evicted
         b = int(xb.shape[0])
-        unit = self._unit(rec)
+        units = sorted(self._units(rec), key=self._outstanding_key)
         per_req = self._svc_req_ewma.get(graph_id, 0.0)
-        out = unit.executor.forward_batch(unit.params, xb)
-        event = None
-        if out.is_cuda:
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(out.device))
-        part = _Part(unit.device_index, b, per_req * b, out=out, event=event)
-        self._charge(part, +1)
-        return [part]
+        if len(units) == 1 or b == 1:
+            unit = units[0]
+            out = unit.executor.forward_batch(unit.params, xb)
+            event = None
+            if out.is_cuda:
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(out.device))
+            part = _Part(unit.device_index, b, per_req * b, out=out, event=event,
+                         unit=unit, chunk=xb)
+            self._charge(part, +1)
+            return [part]
+        units = units[:min(len(units), b)]
+        base, rem = divmod(b, len(units))
+        parts, offset = [], 0
+        for i, unit in enumerate(units):
+            size = base + (1 if i < rem else 0)
+            chunk = xb[offset:offset + size]
+            part = _Part(unit.device_index, size, per_req * size,
+                         future=self._pool_run(unit, graph_id, chunk),
+                         unit=unit, chunk=chunk, offset=offset)
+            offset += size
+            self._charge(part, +1)
+            parts.append(part)
+        return parts
 
     def _dispatch_with_retry(self, graph_id: str, xs) -> List[_Part]:
         """Dispatch with bounded retry + exponential backoff for
@@ -1243,16 +1523,43 @@ class GCNServingEngine:
                 0.0, self._dev_outstanding.get(d, 0.0) + sign * part.est
             )
 
+    def _retry_part(self, graph_id: str, part: _Part,
+                    exc: Exception) -> Tuple[object, Exception]:
+        """Retry one failed sub-batch on the graph's sibling replicas,
+        least outstanding work first. Every replica is a bit-identical
+        clone, so a sibling's output is indistinguishable from the
+        original's — the fault stays unobservable in the logits. Each
+        attempt charges and settles its own outstanding-work meter;
+        returns ``(out, None)`` on success or ``(None, last_exc)`` when
+        every sibling failed too (or there were none to try)."""
+        rec = self._graphs.get(graph_id)
+        if rec is None or part.unit is None or part.chunk is None:
+            return None, exc
+        siblings = [u for u in self._units(rec) if u.executor is not part.unit.executor]
+        for unit in sorted(siblings, key=self._outstanding_key):
+            self._count("chunk_retries")
+            retry = _Part(unit.device_index, part.n, part.est)
+            self._charge(retry, +1)
+            try:
+                return self._run_unit(unit, graph_id, part.chunk), None
+            except Exception as e:
+                exc = e
+            finally:
+                self._charge(retry, -1)
+        return None, exc
+
     def _await_batch(
         self, graph_id: str, parts: List[_Part]
     ) -> Tuple[object, List[_PartFailure]]:
         """Block until every part of one dispatched batch settles, then
-        merge the completed logits in request order.
+        merge the successful sub-batch logits back in request order (on the
+        primary replica's device).
 
         Returns ``(out, failures)``: ``out`` is the merged logits of the
         parts that completed (None when none did) and ``failures`` names
-        the request-order slices that failed. Every part settles its
-        outstanding-work charge exactly once, success or failure; the
+        the request-order slices that stayed failed after sibling-replica
+        retries. Every part settles its outstanding-work charge exactly
+        once, success or failure; no future is left unawaited and the
         served-work counters are untouched here."""
         outs: List[Tuple[int, object]] = []
         failures: List[_PartFailure] = []
@@ -1260,15 +1567,21 @@ class GCNServingEngine:
         try:
             for part in parts:
                 try:
-                    _block_until_ready(part.out, part.event)
+                    if part.future is not None:
+                        out = part.future.result()
+                    else:
+                        out = _block_until_ready(part.out, part.event)
                 except Exception as e:
                     self._charge(part, -1)
                     settled.add(id(part))
-                    failures.append(_PartFailure(part.offset, part.n, e))
-                    continue
-                self._charge(part, -1)
-                settled.add(id(part))
-                outs.append((part.offset, part.out))
+                    out, e = self._retry_part(graph_id, part, e)
+                    if out is None:
+                        failures.append(_PartFailure(part.offset, part.n, e))
+                        continue
+                else:
+                    self._charge(part, -1)
+                    settled.add(id(part))
+                outs.append((part.offset, out))
         finally:
             # an unexpected escape (e.g. KeyboardInterrupt) must still
             # settle every remaining charge — never a leaked meter
@@ -1278,9 +1591,18 @@ class GCNServingEngine:
         if not outs:
             return None, failures
         outs.sort(key=lambda t: t[0])
-        if len(outs) == 1:
+        p = self.placer.placement_of(graph_id)
+        if len(outs) == 1 and not failures:
+            # a replicated graph's output always lands on the primary's
+            # device, even when a single least-loaded secondary (or a
+            # sibling retry) served the whole batch — which replica served
+            # must stay unobservable, placement included
+            if p.kind == REPLICATED:
+                return outs[0][1].to(self.devices[p.device_index]), failures
             return outs[0][1], failures
-        return torch.cat([o for _, o in outs], dim=0), failures
+        target = (self.devices[p.device_index] if p.device_index is not None
+                  else outs[0][1].device)
+        return torch.cat([o.to(target) for _, o in outs], dim=0), failures
 
     def _note_service(self, gid: str, svc_s: float, n_requests: int) -> None:
         """Fold one completed batch into the per-batch and per-request
@@ -1388,6 +1710,10 @@ class GCNServingEngine:
             _Request(rid=rid, x=x, submit_t=now, deadline=deadline)
         )
         if len(self._pending[graph_id]) >= self.max_batch:
+            # a queue hot enough to hit the threshold is the saturation
+            # signal's strongest form — give replication a chance to grow
+            # before the batch serves
+            self._update_replication(now)
             served = self._serve_queues([graph_id], now=now)
             for gid, out in served.items():
                 self._ready.setdefault(gid, []).append(out)
@@ -1403,9 +1729,11 @@ class GCNServingEngine:
         completion estimate walks the queues in EDF order over a
         per-device load map, so co-located queues serialize. When a queue
         is due, every EDF-predecessor serves with it. ``now`` defaults to
-        ``time.monotonic()`` (tests inject a clock)."""
+        ``time.monotonic()`` (tests inject a clock). Replica sets grow or
+        shrink here too (see ``_update_replication``)."""
         if now is None:
             now = time.monotonic()
+        self._update_replication(now)
         due = set(self.policy.due_queues(self._policy_state(now)))
         # max_batch threshold queues serve regardless of deadlines — the
         # batching bound is the engine's, not the policy's
@@ -1590,6 +1918,12 @@ class GCNServingEngine:
         }
 
     def stats(self) -> dict:
+        replicas = {
+            g: list(self.placer.placement_of(g).device_indices)
+            for g in self._graphs
+            if self.placer.placement_of(g) is not None
+            and self.placer.placement_of(g).kind == REPLICATED
+        }
         sat = self.saturation()
         return dict(
             self.counters,
@@ -1607,7 +1941,7 @@ class GCNServingEngine:
             ),
             latency_us_max=self._lat_max * 1e6,
             **self.latency_percentiles(),
-            replicas={},  # one device: no replicas
+            replicas=replicas,
             per_device=self.placer.device_report(
                 extra={d: {"saturation_s": s} for d, s in sat.items()}
             ),

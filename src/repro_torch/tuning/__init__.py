@@ -9,10 +9,8 @@ The port of ``repro.tuning``:
   report, persist the winner;
 * ``store``    — the persistent on-disk store under
   ``~/.cache/repro-awb-gcn/tuning-torch`` (or ``$REPRO_TORCH_TUNING_STORE``);
-* ``registry`` — the in-process caches (fingerprint → schedule / executor).
-
-Multi-device executors are not ported yet, so ``mesh_fingerprint`` is not
-exported here.
+* ``registry`` — the in-process caches (fingerprint → schedule / executor),
+  keyed by placement (``mesh_fingerprint`` for sharded executors).
 """
 from repro_torch.tuning.registry import (  # noqa: F401
     clear_caches,
@@ -21,6 +19,7 @@ from repro_torch.tuning.registry import (  # noqa: F401
     get_schedule,
     get_spmm_schedules,
     graph_fingerprint,
+    mesh_fingerprint,
 )
 from repro_torch.tuning.runner import (  # noqa: F401
     autotune,

@@ -1,14 +1,12 @@
 """In-process caches: graph fingerprint → schedule / executor.
 
-The single-device part of ``repro.tuning.registry``. ``graph_fingerprint``
-hashes the same bytes as the JAX package's, so both packages key one graph
-alike. The fingerprint caches are unbounded (a serving system holds a
-handful of long-lived graphs); the identity-keyed per-schedule cache is a
-bounded LRU. Executors key on their device as well, so copies of one graph
-on several devices coexist.
-
-Multi-device executors (``n_devices``/``mesh``) belong to the sharded slice
-of the port and raise ``NotImplementedError`` here.
+The port of ``repro.tuning.registry``. ``graph_fingerprint`` hashes the same
+bytes as the JAX package's, so both packages key one graph alike. The
+fingerprint caches are unbounded (a serving system holds a handful of
+long-lived graphs); the identity-keyed per-schedule cache is a bounded LRU.
+Executors key on their placement as well — ``(mesh fingerprint, device
+fingerprint)`` — so single-device copies of one graph on several devices
+and sharded executors over several meshes coexist.
 """
 
 from __future__ import annotations
@@ -23,9 +21,14 @@ from repro_torch.core import csc as fmt
 from repro_torch.core import executor as _exe
 from repro_torch.core import reorder as _reorder
 from repro_torch.core import schedule as _schedule
-from repro_torch.core.executor import ScheduleExecutor, select_routing
+from repro_torch.core.executor import (
+    ScheduleExecutor,
+    ShardedScheduleExecutor,
+    _ExecutorBase,
+    select_routing,
+)
 from repro_torch.core.schedule import Schedule
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, resolve_mesh
 
 
 def graph_fingerprint(a: fmt.COO) -> str:
@@ -66,10 +69,36 @@ def delta_fingerprint(parent_fp: str, delta, revision: int) -> str:
     return h.hexdigest()
 
 
+def mesh_fingerprint(mesh=None, n_devices: Optional[int] = None):
+    """Hashable identity of the requested device mesh — the first half of
+    the executor cache's placement key.
+
+    ``None`` (no mesh, no device count) means the plain single-device
+    ``ScheduleExecutor``; ``n_devices=1`` is a *distinct* entry (a 1-device
+    sharded executor), so single- and multi-device executors coexist in the
+    cache. Positions key by ``(type, index)``: the same shape on other
+    devices is another placement, and a mesh that names one device twice
+    keys apart from one that names it once. Validation is
+    ``device.resolve_mesh``'s (a count beyond the CUDA devices, or one that
+    contradicts ``mesh``, raises)."""
+    if mesh is None and n_devices is None:
+        return None
+    positions = resolve_mesh(n_devices, mesh)
+    return (("dev",), (len(positions),), tuple((d.type, d.index) for d in positions))
+
+
+def device_fingerprint(device) -> Optional[tuple]:
+    """Hashable identity of a single-device placement: ``(type, index)`` of
+    the resolved device (``None``, the card, resolves first); keys
+    **same-graph replicas on different devices** apart in the cache."""
+    dev = resolve_device(device)
+    return (dev.type, dev.index)
+
+
 _SCHEDULE_CACHE: dict = {}
 _EXECUTOR_CACHE: dict = {}
 _REORDER_CACHE: dict = {}
-_EXEC_BY_SCHEDULE: "OrderedDict[tuple, ScheduleExecutor]" = OrderedDict()
+_EXEC_BY_SCHEDULE: "OrderedDict[tuple, _ExecutorBase]" = OrderedDict()
 _EXEC_BY_SCHEDULE_CAP = 32
 
 
@@ -91,14 +120,6 @@ def _sched_key(fp, nnz_per_step, rows_per_window, cols_per_block, window_nnz,
                balanced, reorder="none"):
     return (fp, nnz_per_step, rows_per_window, str(cols_per_block), window_nnz,
             balanced, reorder)
-
-
-def _single_device(n_devices, mesh, device):
-    if n_devices is not None or mesh is not None:
-        raise NotImplementedError(
-            "multi-device executors (n_devices/mesh) are not ported yet"
-        )
-    return resolve_device(device)
 
 
 def get_reorder(a: fmt.COO, strategy: str, fingerprint: Optional[str] = None):
@@ -199,6 +220,24 @@ def get_spmm_schedules(
     return get_schedule(a, **kw), get_schedule(fmt.transpose_coo(a), **kw)
 
 
+def _placement_key(mesh, n_devices, device):
+    """(mesh fingerprint, device fingerprint) with the combination rules:
+    ``device`` pins a single-device executor, so it contradicts a mesh."""
+    if device is not None and (mesh is not None or n_devices is not None):
+        raise ValueError(
+            "device= pins a single-device executor to one placement; it "
+            "cannot be combined with n_devices/mesh"
+        )
+    mkey = mesh_fingerprint(mesh, n_devices)
+    return mkey, (None if mkey is not None else device_fingerprint(device))
+
+
+def _build(sched: Schedule, mkey, *, n_devices, mesh, device, **kw) -> _ExecutorBase:
+    if mkey is None:
+        return ScheduleExecutor(sched, device=device, **kw)
+    return ShardedScheduleExecutor(sched, n_devices=n_devices, mesh=mesh, **kw)
+
+
 def get_executor(
     a: fmt.COO,
     *,
@@ -214,12 +253,18 @@ def get_executor(
     mesh=None,
     device=None,
     reorder: str = "none",
-) -> ScheduleExecutor:
-    """Fingerprint-cached executor on ``device`` (default: the card): the
-    first call converges (builds the schedule, uploads it); every later call
-    with the same graph, config and device is a cache hit — no rebuild, no
-    host→device transfer."""
-    dev = _single_device(n_devices, mesh, device)
+) -> _ExecutorBase:
+    """Fingerprint-cached executor: the first call converges (builds the
+    schedule, uploads it); every later call with the same graph, config and
+    placement is a cache hit — no rebuild, no host→device transfer.
+
+    Pass ``n_devices`` (the first CUDA devices) or ``mesh`` (a list of
+    devices, ``device.resolve_mesh``) for a ``ShardedScheduleExecutor``
+    whose step shards live one per position, or ``device`` (default: the
+    card) for a ``ScheduleExecutor`` on one device. The cache keys on
+    ``(graph fingerprint, mesh, device)``, so single-, multi-device and
+    per-replica executors of the same graph coexist."""
+    mkey, dkey = _placement_key(mesh, n_devices, device)
     fp = graph_fingerprint(a)
     key = (
         _sched_key(fp, nnz_per_step, rows_per_window, cols_per_block,
@@ -227,7 +272,8 @@ def get_executor(
         ktile,
         routing,
         bf16_accumulate,
-        str(dev),
+        mkey,
+        dkey,
     )
     ex = _EXECUTOR_CACHE.get(key)
     if ex is None:
@@ -242,14 +288,9 @@ def get_executor(
             fingerprint=fp,
         )
         _, inv = get_reorder(a, reorder, fingerprint=fp)
-        ex = ScheduleExecutor(
-            sched,
-            ktile=ktile,
-            routing=routing,
-            bf16_accumulate=bf16_accumulate,
-            device=dev,
-            row_unperm=inv,
-        )
+        ex = _build(sched, mkey, n_devices=n_devices, mesh=mesh, device=device,
+                    ktile=ktile, routing=routing, bf16_accumulate=bf16_accumulate,
+                    row_unperm=inv)
         _EXECUTOR_CACHE[key] = ex
     return ex
 
@@ -263,23 +304,23 @@ def executor_for_schedule(
     n_devices: Optional[int] = None,
     mesh=None,
     device=None,
-) -> ScheduleExecutor:
+) -> _ExecutorBase:
     """Executor for a caller-built schedule, memoized per (schedule
-    instance, ktile, routing, accumulation, device) — identity-keyed, so
-    rebuilding a schedule re-uploads while reusing one doesn't."""
-    dev = _single_device(n_devices, mesh, device)
+    instance, ktile, routing, accumulation, mesh, device) — identity-keyed,
+    so rebuilding a schedule re-uploads while reusing one doesn't, and
+    asking for another routing, mesh or device never returns a mismatched
+    cached executor."""
+    mkey, dkey = _placement_key(mesh, n_devices, device)
     routing = routing or select_routing(
         sched.nnz_per_step, sched.cols_per_block, sched.rows_per_window, ktile
     )
-    key = (id(sched), ktile, routing, bf16_accumulate, str(dev))
+    key = (id(sched), ktile, routing, bf16_accumulate, mkey, dkey)
     ex = _EXEC_BY_SCHEDULE.get(key)
     if ex is not None and ex.sched is sched:
         _EXEC_BY_SCHEDULE.move_to_end(key)
         return ex
-    ex = ScheduleExecutor(
-        sched, ktile=ktile, routing=routing, bf16_accumulate=bf16_accumulate,
-        device=dev,
-    )
+    ex = _build(sched, mkey, n_devices=n_devices, mesh=mesh, device=device,
+                ktile=ktile, routing=routing, bf16_accumulate=bf16_accumulate)
     _EXEC_BY_SCHEDULE[key] = ex
     if len(_EXEC_BY_SCHEDULE) > _EXEC_BY_SCHEDULE_CAP:
         _EXEC_BY_SCHEDULE.popitem(last=False)

@@ -15,7 +15,9 @@ process* skips the sweep entirely.
 
 The port of ``repro.tuning.runner``: candidates run on ``device`` (default:
 the card), through the hand-written kernels there, and are timed on the
-host clock with the device synchronized on both sides (``time_call``).
+host clock with the device synchronized on both sides (``time_call``). A
+sharded candidate (``n_devices``) runs over the first ``n_devices``
+positions of ``mesh`` (a list of devices; default: the first CUDA devices).
 """
 
 from __future__ import annotations
@@ -32,8 +34,13 @@ import torch
 from repro_torch.core import autotuner
 from repro_torch.core import csc as fmt
 from repro_torch.core import reorder as _reorder
-from repro_torch.core.executor import ONEHOT, ScheduleExecutor
-from repro_torch.device import resolve_device
+from repro_torch.core.executor import (
+    ONEHOT,
+    ScheduleExecutor,
+    ShardedScheduleExecutor,
+    _ExecutorBase,
+)
+from repro_torch.device import resolve_device, resolve_mesh
 from repro_torch.tuning import registry
 from repro_torch.tuning.space import (
     TunedConfig,
@@ -105,7 +112,7 @@ def time_call(
     return (time.perf_counter() - t0) / iters * 1e6
 
 
-def measure_candidate(ex: ScheduleExecutor, b, iters: int, warmup: int) -> float:
+def measure_candidate(ex: _ExecutorBase, b, iters: int, warmup: int) -> float:
     """Measured microseconds per spmm of one candidate's executor. The
     seam tests intercept to prove the warm-start path runs zero sweeps."""
     return time_call(lambda: ex.spmm(b), iters, warmup)
@@ -259,6 +266,7 @@ def store_key(
     allow_bf16: bool = False,
     revision: int = 0,
     device=None,
+    mesh=None,
     **_ignored,
 ) -> str:
     """The on-disk key ``autotune`` files its result under.
@@ -268,7 +276,8 @@ def store_key(
     never masquerades as the full sweep's, and an ``allow_bf16`` run's
     winner never reaches a default (f32-only) caller. ``revision`` is the
     streaming repair generation passed through to ``TuningStore.key``;
-    ``device`` (default: the card) names the device kind and mesh.
+    ``device`` (default: the card) names the device kind, and ``mesh`` (a
+    list of devices) the devices the sweep may span.
     Extra keyword arguments are accepted and ignored so a whole
     ``autotune``-kwargs dict can be passed through (the serving engine
     does)."""
@@ -284,7 +293,7 @@ def store_key(
         fp_store,
         kdim,
         device=device_kind(device),
-        mesh=mesh_descriptor(max_devices, device),
+        mesh=mesh_descriptor(max_devices, device, mesh),
         revision=revision,
     )
 
@@ -300,7 +309,24 @@ def _winning_perm(
     return perm
 
 
-def _bf16_report(a: fmt.COO, best: TunedConfig, b, device) -> TunedConfig:
+def _placed_kwargs(kw: dict, device, mesh) -> dict:
+    """``get_executor`` keyword arguments that place one candidate (or
+    config): on ``device``, or for a sharded one over the first
+    ``n_devices`` positions of ``mesh`` (default: the first CUDA
+    devices)."""
+    kw = dict(kw)
+    d = kw.pop("n_devices", None)
+    if d is None:
+        return dict(kw, device=device)
+    if mesh is None:
+        return dict(kw, n_devices=d)
+    if d > len(mesh):
+        raise ValueError(f"a candidate asks for n_devices={d} on a mesh of "
+                         f"{len(mesh)} position(s)")
+    return dict(kw, mesh=list(mesh)[:d])
+
+
+def _bf16_report(a: fmt.COO, best: TunedConfig, b, device, mesh=None) -> TunedConfig:
     """Attach max |f32 − bf16| of the winning geometry on the probe operand
     (computed whether or not the bf16 twin won the sweep).
 
@@ -309,23 +335,22 @@ def _bf16_report(a: fmt.COO, best: TunedConfig, b, device) -> TunedConfig:
     footprint in the registry for every tuned graph."""
     # the winner stays in the registry (it is what gets served); its
     # opposite-precision twin is built directly and garbage-collected
-    out_base = registry.get_executor(
-        a, **best.as_executor_kwargs(), device=device
-    ).spmm(b)
+    placed = _placed_kwargs(best.as_executor_kwargs(), device, mesh)
+    out_base = registry.get_executor(a, **placed).spmm(b)
     sched = registry.get_schedule(a, **best.as_schedule_kwargs())
     _, inv = registry.get_reorder(a, best.reorder)
-    if best.n_devices is not None:
-        raise NotImplementedError(
-            "sharded executors are not ported yet (ROADMAP queue 1, item 7)"
-        )
-    twin = ScheduleExecutor(
-        sched,
+    twin_kw = dict(
         ktile=best.ktile,
         routing=best.routing,
         bf16_accumulate=not best.bf16_accumulate,
-        device=device,
         row_unperm=inv,
     )
+    if best.n_devices is None:
+        twin = ScheduleExecutor(sched, device=device, **twin_kw)
+    else:
+        twin = ShardedScheduleExecutor(
+            sched, n_devices=placed.get("n_devices"), mesh=placed.get("mesh"),
+            **twin_kw)
     out_twin = twin.spmm(b)
     err = float((out_base.float() - out_twin.float()).abs().max())
     return dataclasses.replace(best, bf16_max_err=err)
@@ -349,15 +374,18 @@ def autotune(
     bf16_report: bool = True,
     store: Optional[TuningStore] = None,
     device=None,
+    mesh=None,
 ) -> TunedConfig:
     """Measure the sweep's jitted executors on a random dense operand of
     ``b_shape`` and cache the fastest config by graph fingerprint.
 
     ``b_shape`` is (n, kdim) (only kdim matters for the cache key). Every
-    candidate runs on ``device`` (default: the card). One-hot candidates
+    single-device candidate runs on ``device`` (default: the card), every
+    sharded one over the first ``n_devices`` positions of ``mesh`` (a list
+    of devices; default: the first CUDA devices). One-hot candidates
     are skipped unless ``include_onehot``: off the TPU (always, in the port)
     the one-hot routing is never competitive, and on the card both routings
-    run the same kernel. When the host
+    run the same kernel. When the host (or ``mesh``)
     exposes more than one device the default sweep additionally measures
     the **sharded** executor at power-of-two device counts (capped by
     ``max_devices`` and by ``space.sharded_worth_it`` — a graph that fits
@@ -384,6 +412,8 @@ def autotune(
     timing candidates the cycle model rules out (see ``prune_sweep``).
     """
     dev = resolve_device(device)
+    mesh = None if mesh is None else resolve_mesh(mesh=mesh)
+    n_avail = device_count(dev, mesh)
     kdim = int(b_shape[-1])
     rounds = AUTOTUNE_ROUNDS if rounds is None else max(1, int(rounds))
     fp = registry.graph_fingerprint(a)
@@ -402,7 +432,8 @@ def autotune(
         _sweep_key(sweep),
         max_devices,
         str(dev),
-        device_count(dev),
+        n_avail,
+        registry.mesh_fingerprint(mesh),
         prune,
         prune_slack,
         allow_bf16,
@@ -418,6 +449,7 @@ def autotune(
         ktile=ktile,
         allow_bf16=allow_bf16,
         device=dev,
+        mesh=mesh,
     )
     hit = _AUTOTUNE_CACHE.get(key)
     if hit is not None:
@@ -434,7 +466,6 @@ def autotune(
         entry = store.load(skey)
         if entry is not None:
             cfg, sched, perm = entry
-            n_avail = device_count(dev)
             # belt and braces: the allow_bf16 key-fold already separates
             # the entries, but never hand a bf16 config to an f32 caller;
             # and a caller asking for the bf16 error report must not be
@@ -453,7 +484,7 @@ def autotune(
 
     if sweep is None:
         sweep_eff = default_sweep(a) + sharded_sweep(
-            a, sharded_device_counts(max_devices)
+            a, sharded_device_counts(max_devices, n_avail)
         )
     else:
         sweep_eff = list(sweep)
@@ -497,7 +528,7 @@ def autotune(
     timed = []
     for cand in sweep_eff:
         kw = candidate_executor_kwargs(cand, ktile)
-        ex = registry.get_executor(a, **kw, device=dev)
+        ex = registry.get_executor(a, **_placed_kwargs(kw, dev, mesh))
         timed.append([cand, kw, ex, measure_candidate(ex, b, iters, warmup)])
     for r in range(1, rounds):
         k = r % len(timed)
@@ -527,7 +558,7 @@ def autotune(
     # best candidate, so at least one point was measured
     assert best is not None
     if bf16_report:
-        best = _bf16_report(a, best, b, dev)
+        best = _bf16_report(a, best, b, dev, mesh)
     if store is not None:
         sched = registry.get_schedule(
             a, **best.as_schedule_kwargs(), fingerprint=fp
@@ -539,12 +570,13 @@ def autotune(
 
 def autotuned_executor(
     a: fmt.COO, b_shape: Tuple[int, ...], **kw
-) -> ScheduleExecutor:
+) -> _ExecutorBase:
     """The executor for the measured-fastest configuration (both the tuning
-    result and the executor itself are cached)."""
+    result and the executor itself are cached), placed as ``autotune``
+    placed it (``device=``, ``mesh=``)."""
     cfg = autotune(a, b_shape, **kw)
     return registry.get_executor(
-        a, **cfg.as_executor_kwargs(), device=kw.get("device")
+        a, **_placed_kwargs(cfg.as_executor_kwargs(), kw.get("device"), kw.get("mesh"))
     )
 
 
@@ -554,12 +586,12 @@ def warm_tuned_executor(
     *,
     store: TuningStore,
     **kw,
-) -> Tuple[ScheduleExecutor, TunedConfig]:
+) -> Tuple[_ExecutorBase, TunedConfig]:
     """Store-backed ``autotuned_executor``: a populated store yields the
     executor with zero measured sweeps and zero schedule rebuilds; a miss
     tunes, persists, and returns the same."""
     cfg = autotune(a, b_shape, store=store, **kw)
     ex = registry.get_executor(
-        a, **cfg.as_executor_kwargs(), device=kw.get("device")
+        a, **_placed_kwargs(cfg.as_executor_kwargs(), kw.get("device"), kw.get("mesh"))
     )
     return ex, cfg

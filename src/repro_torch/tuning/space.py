@@ -211,13 +211,16 @@ def sharded_worth_it(a: fmt.COO, n_devices: int, nnz_per_step: int = 256) -> boo
     return steps >= n_devices * MIN_SHARDED_STEPS_PER_DEVICE
 
 
-def sharded_device_counts(max_devices: Optional[int] = None) -> Tuple[int, ...]:
+def sharded_device_counts(max_devices: Optional[int] = None,
+                          n_avail: Optional[int] = None) -> Tuple[int, ...]:
     """Device counts the sharded sweep covers: powers of two in
     (1, available], capped at ``max_devices``, where the available count is
-    ``torch.cuda.device_count()`` (1 on a host without a card). Empty on a
-    single-device host — the sweep then degenerates to the single-device
-    candidates."""
-    n_avail = max(1, torch.cuda.device_count())
+    ``n_avail`` (a mesh's positions) or ``torch.cuda.device_count()`` (1 on
+    a host without a card). Empty on a single-device host — the sweep then
+    degenerates to the single-device candidates."""
+    if n_avail is None:
+        n_avail = torch.cuda.device_count()
+    n_avail = max(1, n_avail)
     cap = n_avail if max_devices is None else min(max_devices, n_avail)
     counts = []
     d = 2

@@ -92,20 +92,24 @@ def device_kind(device=None) -> str:
     return f"{dev.type}:{dev.type}"
 
 
-def device_count(device=None) -> int:
-    """Devices of ``device``'s kind a sweep may span: the cards
+def device_count(device=None, mesh=None) -> int:
+    """Devices a sweep may span: the positions of ``mesh`` (a list of
+    devices) when one is given, else the cards of ``device``'s kind
     (``torch.cuda.device_count()``), or 1 on the host."""
+    if mesh is not None:
+        return len(mesh)
     if resolve_device(device).type == "cuda":
         return torch.cuda.device_count()
     return 1
 
 
-def mesh_descriptor(max_devices: Optional[int] = None, device=None) -> str:
+def mesh_descriptor(max_devices: Optional[int] = None, device=None,
+                    mesh=None) -> str:
     """The mesh half of the store key: how many devices the sweep was
     allowed to span. ``max_devices=1`` pins the single-device sweep (what
-    the serving engine uses); ``None`` means every visible device of
-    ``device``'s kind."""
-    n_avail = device_count(device)
+    the serving engine uses); ``None`` means every device the sweep may
+    span (``device_count``)."""
+    n_avail = device_count(device, mesh)
     n = n_avail if max_devices is None else min(max_devices, n_avail)
     return f"{max(1, n)}dev"
 

@@ -529,3 +529,150 @@ def test_make_spmm_fn_uploads_once_across_steps(dev, monkeypatch):
         texe._DEVICE_STEPS.clear()  # the executor cache's eviction
     torch.cuda.synchronize()
     assert len(uploads) == 2
+
+
+# ---------------------------------------------------------------------------
+# the sharded executor on a mesh of positions on the card
+# ---------------------------------------------------------------------------
+
+
+def _launches():
+    return dict(spmm_cuda.LAUNCHES)
+
+
+@pytest.mark.parametrize("d", [1, 2, 4])
+@pytest.mark.parametrize("kind", ["balanced", "blocked_evil"])
+@pytest.mark.parametrize("acc", [torch.float32, torch.bfloat16])
+def test_sharded_kernels_match_plain_and_single_device(dev, monkeypatch, d, kind, acc):
+    """Each position runs the window and epilogue kernels on its range: held
+    against the same shards through the plain versions (a host mesh down
+    the kernels' path), against the single-device kernels and the COO
+    product; two calls bit-equal; D windows and D epilogues a call."""
+    a = tsynth.power_law_adjacency(300, 0.03, 0.9, seed=7)
+    sched = SCHEDULES[kind](a)
+    bf16 = acc == torch.bfloat16
+    b = torch.from_numpy(np.random.default_rng(d).standard_normal(
+        (300, 24)).astype(np.float32))
+    ex = texe.ShardedScheduleExecutor(sched, mesh=[dev] * d, bf16_accumulate=bf16)
+    assert ex._kernels and all(s.slots.is_cuda for s in ex._steps)
+    before = _launches()
+    got = ex.spmm(b.to(dev))
+    torch.cuda.synchronize()
+    suffix = "_bf16acc" if bf16 else ""
+    assert spmm_cuda.LAUNCHES["spmm_balanced" + suffix] == before["spmm_balanced" + suffix] + d
+    assert spmm_cuda.LAUNCHES["spmm_epilogue" + suffix] == before["spmm_epilogue" + suffix] + d
+    assert torch.equal(got, ex.spmm(b.to(dev)))
+    monkeypatch.setattr(texe, "_runs_kernels", lambda device: True)
+    plain = texe.ShardedScheduleExecutor(sched, mesh=["cpu"] * d, bf16_accumulate=bf16)
+    want = plain.spmm(b)
+    single = texe.ScheduleExecutor(sched, device=dev, bf16_accumulate=bf16).spmm(b.to(dev))
+    gold = tspmm.spmm_coo(a, b.to(dev))
+    if bf16:  # the plain versions take the kernels' rounding sequence
+        assert torch.equal(got.cpu(), want)
+    else:
+        assert float((got.cpu() - want).abs().max()) <= _tol(want, acc)
+    assert float((got - single).abs().max()) <= _tol(single, acc)
+    assert float((got - gold).abs().max()) <= (_tol(gold, acc) if not bf16 else 0.1)
+
+
+def test_sharded_device_bytes_and_release(dev):
+    """``device_bytes`` is what the positions uploaded (within the caching
+    allocator's rounding), and ``release_device_steps`` frees the shards'
+    uploads once their executor is gone."""
+    import gc
+
+    a = tsynth.power_law_adjacency(4000, 0.01, 1.0, seed=3)
+    sched = tsched.build_balanced_schedule(a, 64, 32)
+    inv = np.random.default_rng(3).permutation(4000).astype(np.int32)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    ex = texe.ShardedScheduleExecutor(sched, mesh=[dev] * 4, row_unperm=inv)
+    torch.cuda.synchronize()
+    used = torch.cuda.memory_allocated(dev) - base
+    n_tensors = 4 * len(spmm_cuda.DEVICE_FIELDS) + 1
+    assert ex.device_bytes == sum(s.nbytes for s in ex._steps) + inv.nbytes
+    assert ex.device_bytes <= used <= ex.device_bytes + 512 * n_tensors
+    keys = [k for k in texe._DEVICE_STEPS if k[0] == id(sched)]
+    assert len(keys) == 4 and all(k[2][0] == "shard" for k in keys)
+    del ex
+    gc.collect()
+    assert torch.cuda.memory_allocated(dev) - base > 0  # the memo still holds them
+    texe.release_device_steps(sched)
+    gc.collect()
+    assert torch.cuda.memory_allocated(dev) == base
+
+
+def test_sharded_streaming_executors_on_the_card(dev, monkeypatch):
+    monkeypatch.setattr(texe, "SCOPED_UPLOAD_MIN_BYTES", 0)
+    sched, (vp, slots), (rs, stats) = _update_case(4000, 11)
+    ex = texe.ShardedScheduleExecutor(sched, mesh=[dev] * 4)
+    b = torch.rand((4000, 64), device=dev)
+    for new_sched, make in (
+            (vp, lambda: texe.value_patched_executor(ex, vp, slots, vp.val[slots])),
+            (rs, lambda: texe.repaired_executor(ex, rs, stats))):
+        before = _launches()
+        new = make()
+        assert _launches() == before  # building launches nothing
+        cold = texe.ShardedScheduleExecutor(dataclasses.replace(new_sched), mesh=[dev] * 4)
+        for got, want in zip(new._steps, cold._steps):
+            for g, w in zip(got[:5], want[:5]):
+                assert g.is_cuda and torch.equal(g, w)
+        assert torch.equal(new.spmm(b), cold.spmm(b))
+    # the value patch went only to the positions holding a patched slot
+    vex = texe.value_patched_executor(ex, vp, slots, vp.val[slots])
+    owners = set(np.searchsorted(ex.step_ranges[:, 1], slots // sched.nnz_per_step,
+                                 side="right").tolist())
+    assert vex.dirty_devices == len(owners)
+    for d in range(4):
+        if d not in owners:
+            assert vex._steps[d] is ex._steps[d]
+
+
+def test_mesh_engine_on_one_card(dev, tmp_path):
+    """Four positions on one card: the sharded route for a graph over the
+    budget, a hot graph's replicas equal to a one-replica engine's bit for
+    bit, and a failed replica chunk retried on a sibling."""
+    from repro_torch.core.executor import FAULTS
+    from repro_torch.serving.gcn_engine import GCNServingEngine
+    from repro_torch.serving.placement import REPLICATED, SHARDED
+
+    kw = dict(iters=1, warmup=1, bf16_report=False, sweep=[dict(
+        nnz_per_step=64, rows_per_window=32, cols_per_block=None, window_nnz=None,
+        routing="gather")])
+    rng = np.random.default_rng(5)
+    params = tgcn.params_from_jax({
+        "w0": rng.uniform(-0.3, 0.3, (16, 16)).astype(np.float32),
+        "w1": rng.uniform(-0.3, 0.3, (16, 4)).astype(np.float32)}, dev)
+    giant = tsynth.power_law_adjacency(3000, 0.01, 0.9, seed=99)
+    hot = tsynth.power_law_adjacency(300, 0.03, 0.9, seed=5)
+    eng = GCNServingEngine(store_root=tmp_path, devices=[dev] * 4, max_replicas=3,
+                           replicate_after_s=1e-6, replica_shrink_after=10**6,
+                           device_budget_bytes=giant.nnz * 4, autotune_kwargs=kw)
+    assert eng.add_graph("giant", giant, params).placement.kind == SHARDED
+    x = torch.rand((3000, 16), device=dev)
+    before = _launches()
+    out = eng.infer("giant", x)
+    assert spmm_cuda.LAUNCHES["spmm_balanced"] - before["spmm_balanced"] == 2 * 4
+    gold = tgcn.forward(params, giant, x)
+    assert float((out - gold).abs().max()) <= _tol(gold, torch.float32)
+    one = GCNServingEngine(store_root=tmp_path, devices=[dev] * 4, max_replicas=1,
+                           autotune_kwargs=kw)
+    one.add_graph("hot", hot, params)
+    eng.add_graph("hot", hot, params)
+    reqs = [torch.rand((300, 16), device=dev) for _ in range(12)]
+    ref = one.serve_batch("hot", reqs)
+    eng.serve_batch("hot", reqs[:2])
+    for _ in range(3):
+        for r in reqs:
+            eng.submit("hot", r, deadline_s=0.0)
+        assert torch.equal(eng.poll()["hot"], ref)
+    assert eng.placer.placement_of("hot").kind == REPLICATED
+    victim = sorted(eng._graphs["hot"].replicas)[0]
+    FAULTS.clear()
+    FAULTS.arm("replica_chunk", graph="hot", device=victim, times=1)
+    try:
+        assert torch.equal(eng.serve_batch("hot", reqs), ref)
+        assert FAULTS.fired == [("replica_chunk", "hot", victim)]
+    finally:
+        FAULTS.clear()
+    assert eng.counters["request_failures"] == 0 and eng.counters["chunk_retries"] >= 1

@@ -235,5 +235,5 @@ def test_decode_matches_forward(variant):
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "whisper-tiny",
                                   "recurrentgemma-2b", "rwkv6-3b"])
 def test_unported_kinds_name_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 1"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md queue 1, item 8\.[1-4]"):
         ttr.init_params(tcfgs.get_reduced_config(arch), torch.Generator())

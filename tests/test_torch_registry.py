@@ -81,11 +81,26 @@ def test_get_executor_caches_by_graph_config_and_device():
 
 
 def test_multi_device_requests_raise():
+    """What still raises of a multi-device request: a device beside a mesh
+    (a single-device pin contradicts it, as in the reference), a device
+    count beyond the host's cards, a count that contradicts the mesh, and a
+    mesh that is not a list of devices. A mesh of host positions builds the
+    sharded executor, keyed apart from the single-device one."""
     ta, _ = _pair()
-    with pytest.raises(NotImplementedError):
+    s = treg.get_schedule(ta)
+    with pytest.raises(ValueError, match="cannot be combined"):
         treg.get_executor(ta, n_devices=2, device="cpu")
-    with pytest.raises(NotImplementedError):
-        treg.executor_for_schedule(treg.get_schedule(ta), mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="cannot be combined"):
+        treg.executor_for_schedule(s, mesh=["cpu", "cpu"], device="cpu")
+    with pytest.raises(ValueError, match="CUDA device"):
+        treg.get_executor(ta, n_devices=torch.cuda.device_count() + 1)
+    with pytest.raises(ValueError, match="contradicts"):
+        treg.get_executor(ta, n_devices=3, mesh=["cpu", "cpu"])
+    with pytest.raises(ValueError, match="list of devices"):
+        treg.executor_for_schedule(s, mesh="cpu")
+    ex = treg.executor_for_schedule(s, mesh=["cpu", "cpu"])
+    assert isinstance(ex, texe.ShardedScheduleExecutor) and ex.n_devices == 2
+    assert treg.executor_for_schedule(s, device="cpu") is not ex
 
 
 def test_executor_for_schedule_is_identity_keyed():

@@ -964,17 +964,34 @@ def test_engine_policy_constructor_seam(tmp_path):
 
 
 def test_part_2_raises_not_implemented(tmp_path):
+    """Part 2 (the mesh) is in place: a list of devices builds a mesh engine
+    (several positions may name one device), and what still raises is
+    validation — ``devices`` beside ``device``, more devices than the host
+    exposes, an empty mesh, and a sharded candidate on the single-device
+    route. No ``NotImplementedError`` is left."""
     w = _workload(12)
     eng = _engine(tmp_path)
     eng.add_graph("g", w.a, w.params)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5b"):
-        ge.GCNServingEngine(store_root=tmp_path, devices=["cpu", "cpu"])
+    two = ge.GCNServingEngine(store_root=tmp_path, devices=["cpu", "cpu"],
+                              autotune_kwargs=FAST_KW)
+    assert two.devices == [torch.device("cpu")] * 2 and two.n_devices == 2
+    assert two.max_replicas == 2 and two._mesh == two.devices
+    rep = two.add_graph("g", w.a, w.params)
+    assert rep.placement.kind == SINGLE and rep.warm_start
+    np.testing.assert_array_equal(_np(two.infer("g", w.x)), _np(eng.infer("g", w.x)))
     one = ge.GCNServingEngine(store_root=tmp_path, devices=["cpu"])
     assert one.devices == [torch.device("cpu")] and one.n_devices == 1
+    assert one._mesh is None
     assert ge.GCNServingEngine(store_root=tmp_path, devices=1,
                                device="cpu").n_devices == 1
+    with pytest.raises(ValueError, match="not both"):
+        ge.GCNServingEngine(store_root=tmp_path, devices=["cpu"], device="cpu")
+    with pytest.raises(ValueError, match="exposes 1 device"):
+        ge.GCNServingEngine(store_root=tmp_path, devices=2, device="cpu")
+    with pytest.raises(ValueError, match="no device"):
+        ge.GCNServingEngine(store_root=tmp_path, devices=[])
     bad = dict(FAST_KW, sweep=[dict(FAST_SWEEP[0], n_devices=2)])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="device"):
         _engine(tmp_path / "s", autotune_kwargs=bad).add_graph("s", w.a, w.params)
 
 

@@ -818,7 +818,8 @@ def test_engine_annotations_are_registered():
         mod = ModuleInfo(ge.__file__, fh.read())
     guarded_fields = locks.collect_guarded(mod)
     assert guarded_fields["_Resident"] == dict.fromkeys(
-        ("fingerprint", "params", "executor", "bytes", "revision"), "_swap_lock")
+        ("fingerprint", "params", "executor", "bytes", "replicas", "revision"),
+        "_swap_lock")
     assert guarded_fields["GCNServingEngine"] == {
         "_persist_thread": "_persist_spawn_lock"}
     assert locks.lock_declaration_order(mod) == ["_swap_lock", "_persist_spawn_lock"]
