@@ -131,6 +131,30 @@ Builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    sibling (0 request failures); a 16-edge value and a 16-edge structural
    delta into sharded reddit and a value delta into replicated pubmed, each
    graph then bit-equal to a cold admission of its final graph.
+10. Serves two MoE models (``attn_moe``: capacity dispatch, AWB placement)
+   through ``ServeEngine.generate`` with phase 4's prompt lengths,
+   ``max_seq`` and new tokens, seeded random f32 weights:
+   granite-moe-3b-a800m at full width and depth (32 layers, d_model 1536,
+   40 experts top-8), then qwen3-moe-30b-a3b at its published widths with
+   the depth cut to ``MOE_CUT_LAYERS`` of 48 (48 f32 layers do not fit the
+   card). Per model: a warm-up, a timed run with the flash launch count
+   reset just before and read just after (one launch per layer, all in the
+   prefill), and ``torch.profiler`` device splits of the prefill and a
+   decode step by part (the MoE's ranges: router, dispatch, experts,
+   combine; the flash kernel; other matrix products; the rest). The check
+   against the plain attention is layer by layer, teacher-forced on the
+   kernel path's hidden states: attention at the attention tolerance; an
+   expert set may differ only where the k-th and (k+1)-th router
+   probabilities lie within ``MOE_TIE``, a keep only in an expert whose
+   arrivals such a choice changed; the MoE outputs of the agreeing tokens
+   at the f32 tolerance. End to end, the logits of a teacher-forced run of
+   each engine (every routing decision recorded) must agree within the LM
+   tolerance when no decision differed. On granite, the AWB placement of
+   the worst layer's own router histogram (``MOE_DEVICES`` devices,
+   ``MOE_SLOTS_PER_DEVICE`` slots each) must give the identity placement's
+   output dropless; static and AWB imbalances for every layer. Times the
+   flash kernel beside its plain version and
+   ``scaled_dot_product_attention`` at both models' prefill shapes.
 
 Float32 matmuls and cuDNN run without TF32 (both flags are set False), so
 every float32 product is full float32. Tolerances, each scaled by
@@ -148,8 +172,9 @@ window kernel's all-gathers-miss bound per kdim, the flash kernel's bounds
 ``{"engine_streaming": ...}`` line, a ``{"gcn_training": ...}`` line (the
 kernels line names phase 8's Aᵀ entries ``...@AT``; its f32 SpMM entries
 carry their launches per sharded ``forward_batch``), a
-``{"mesh_executor": ...}`` and an ``{"engine_mesh": ...}`` line, the card's
-name and power limit, and as
+``{"mesh_executor": ...}`` and an ``{"engine_mesh": ...}`` line, a
+``{"moe_serving": ...}`` line (the kernels line names phase 10's flash
+entries ``flash_attention@<arch>``), the card's name and power limit, and as
 its last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device, or without the rest of the repository, it exits
@@ -215,6 +240,15 @@ LANE_SWEEP = {512: [(4, 16, 1), (4, 32, 1), (4, 32, 4)],
 # LM serving: qwen2-0.5b prompts, cache length, new tokens, logits tolerance
 LM_ARCH, LM_PROMPTS, LM_MAX_SEQ, LM_NEW, LM_TOL = (
     "qwen2-0.5b", (2048, 1536, 1024, 512), 2080, 32, 2e-3)
+# MoE serving (phase 10): granite-moe at full width and depth, qwen3-moe at
+# its published widths with the depth cut; 10c's devices and slots a device
+# for the AWB placement (48 slots over 40 experts: 8 spare for replicas);
+# router probabilities closer than MOE_TIE at the k-th choice are a near
+# tie; the parts of the MoE device split
+MOE_ARCH, MOE_CUT_ARCH, MOE_CUT_LAYERS = "granite-moe-3b-a800m", "qwen3-moe-30b-a3b", 8
+MOE_DEVICES, MOE_SLOTS_PER_DEVICE, MOE_TIE = 4, 12, 1e-5
+MOE_PARTS = ("router", "dispatch", "experts", "combine", "flash_attention", "dense",
+             "other")
 # the flash kernel's checks: (b, sq, sk, h, hkv, d), the JAX kernel tests'
 # shapes then the configs' head widths at a length no tile divides
 ATTN_SHAPES = [(2, 32, 32, 4, 4, 16), (1, 48, 48, 8, 2, 32), (2, 16, 64, 4, 1, 16),
@@ -2145,6 +2179,443 @@ def phase_attention_time(dev, launches, small_err):
     return entry, bounds
 
 
+def flash_entry(dev, tag, shape, launches):
+    """The flash kernel vs its plain version and ``scaled_dot_product_attention``
+    at one MoE model's prefill shape ``(b, s, h, hkv, d)``, causal, f32, timed
+    in turns (kernel, library, library, kernel): its ``kernels`` entry
+    ``flash_attention@<tag>``, ``launches`` from that model's main run."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention_cuda as tfa
+
+    b, s, h, hkv, d = shape
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn((b, s, n, d), generator=gen, device=dev)
+               for n in (h, hkv, hkv))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+            enable_gqa=True).transpose(1, 2)
+
+    def kernel():
+        return tfa.flash_attention(q, k, v, causal=True)
+
+    gold = tfa.flash_attention_plain(q, k, v, causal=True)
+    err = float((kernel() - gold).abs().max())
+    if not err <= attn_tol(gold, torch.float32):
+        raise AssertionError(f"flash_attention@{tag} {shape}: max |err| {err} > "
+                             f"{attn_tol(gold, torch.float32)}")
+    lib_diff = float((sdpa() - gold).abs().max())
+    del gold
+    ms = [timed_ms(kernel, 20)]
+    lib_ms = [timed_ms(sdpa, 20) for _ in range(2)]
+    ms.append(timed_ms(kernel, 20))
+    plain_ms = timed_ms(lambda: tfa.flash_attention_plain(q, k, v, causal=True), 3)
+    flops = 4 * d * visible_pairs(s, s, True, None) * b * h
+    bytes_ms = (2 * q.numel() + k.numel() + v.numel()) * 4 / PEAK_BYTES_PER_S * 1e3
+    ops_ms = 3 * flops / PEAK_TF32_FLOPS * 1e3  # 3xTF32: three passes
+    return {
+        "name": f"flash_attention@{tag}", "route": "cuda", "source": tfa.SOURCE,
+        "replaces": tfa.REPLACES, "launches": launches, "max_abs_err": err,
+        "ms": float(np.mean(ms)), "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": float(np.mean(lib_ms)), "library_max_abs_diff": lib_diff,
+        "ms_runs": ms, "library_runs_ms": lib_ms, "flops": flops,
+        "per": f"one call at B {b}, S {s}, H {h}, Hkv {hkv}, D {d} (GQA group "
+               f"{h // hkv}), causal, f32; launches counted over one generate of "
+               f"{tag} (one per layer's prefill); bound_ms is the larger of the "
+               "f32 path's tensor-core bound (3xTF32) and HBM",
+    }
+
+
+def moe_split(fn):
+    """Device ms of ``fn`` by part under ``torch.profiler``: a kernel that
+    starts inside one of the MoE's ranges on the device timeline
+    (``moe.router``, ``moe.dispatch``, ``moe.experts``, ``moe.combine``)
+    counts there; the others count as ``flash_attention``, ``dense`` (the
+    other matrix products: projections and the LM head) or ``other``.
+    Returns the split and the number of device operations."""
+    import bisect
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+    spans, work = [], []
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            (spans if e.name.startswith("moe.") else work).append(e)
+    spans.sort(key=lambda e: e.time_range.start)
+    starts = [e.time_range.start for e in spans]
+    split = dict.fromkeys(MOE_PARTS, 0.0)
+    for e in work:
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        name = e.name.lower()
+        part = ("flash_attention" if "flash_attention_kernel" in name
+                else spans[i].name[4:] if i >= 0 and e.time_range.start < spans[i].time_range.end
+                else "dense" if any(w in name for w in ("gemm", "gemv", "xmma", "cutlass"))
+                else "other")
+        split[part] += e.time_range.elapsed_us() / 1e3
+    if not (split["experts"] > 0.0 and split["router"] > 0.0):
+        raise AssertionError(f"the MoE ranges hold no device time: {split}; the "
+                             "ranges' names no longer match moe_split's")
+    return split, len(work)
+
+
+class RouteLog:
+    """Records ``moe.route``'s expert ids and keep masks, call by call, while
+    active (``moe_forward`` looks ``route`` up in its module)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._moe, self._route = moe, moe.route
+
+        def route(*args, **kw):
+            r = self._route(*args, **kw)
+            self.calls.append((r.expert_ids, r.keep))
+            return r
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+
+
+def chosen_and_kept(ids, keep, n_experts):
+    """Per token [G, Tg, E]: whether it chose each expert, and whether that
+    choice was kept."""
+    import torch
+
+    g, tg, k = ids.shape
+    chosen = torch.zeros((g, tg, n_experts), dtype=torch.bool, device=ids.device)
+    chosen.scatter_(-1, ids, True)
+    kept = torch.zeros_like(chosen).scatter_(-1, ids, keep.reshape(g, tg, k))
+    return chosen, kept
+
+
+def compare_routes(a, b, n_experts):
+    """Two routings' (expert ids, keep): the tokens whose expert sets
+    differ, the experts whose arrivals those changed, and the (token,
+    expert) choices made on both sides whose keep differs."""
+    ca, ka = chosen_and_kept(*a, n_experts)
+    cb, kb = chosen_and_kept(*b, n_experts)
+    set_diff = (ca != cb).any(-1)                           # [G, Tg]
+    affected = (ca != cb).any(dim=1).any(dim=0)             # [E]
+    keep_diff = ca & cb & (ka != kb)                        # [G, Tg, E]
+    return set_diff, affected, keep_diff
+
+
+def layer_check(cfg, params, tokens, keep_row):
+    """Teacher-forced on the kernel path, layer by layer: from the hidden
+    state entering each layer, the attention with the flash kernel and with
+    its plain version (at the attention tolerance), ``route`` on both
+    paths' MoE inputs (an expert set may differ only at a near tie of the
+    k-th and (k+1)-th probabilities, a keep only in an expert whose
+    arrivals a differing set changed), and the MoE outputs of the tokens
+    whose decisions agree (at the f32 tolerance). Returns the kernel path's
+    final hidden state, per-layer records, and each layer's router
+    histogram and the MoE input of batch row ``keep_row``."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention, moe
+    from repro_torch.models import transformer as tr
+
+    b, s = tokens.shape
+    dims, mdims = cfg.attn_dims(None), cfg.moe_dims
+    e, k = mdims.n_experts, mdims.top_k
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    x = tr._embed(params, tokens, torch.float32)
+    layers, hists, rows = [], [], []
+    for li, p in enumerate(params["layers"]):
+        q, kk, v = attention._project_qkv(p["attn"], dims, tr._norm(cfg, p["norm1"], x),
+                                          positions)
+        o = {be: ops.attention(q, kk, v, causal=True, backend=be) for be in ("cuda", "torch")}
+        attn_err = float((o["cuda"] - o["torch"]).abs().max())
+        if not attn_err <= attn_tol(o["torch"], torch.float32):
+            raise AssertionError(f"layer {li}: flash vs plain attention max |err| "
+                                 f"{attn_err} > {attn_tol(o['torch'], torch.float32)}")
+        h = {be: x + o[be].reshape(b, s, -1) @ p["attn"]["wo"] for be in o}
+        m = {be: tr._norm(cfg, p["norm2"], h[be]) for be in o}
+        r = {be: moe.route(p["moe"], mdims, m[be]) for be in o}
+        set_diff, affected, keep_diff = compare_routes(
+            (r["cuda"].expert_ids, r["cuda"].keep),
+            (r["torch"].expert_ids, r["torch"].keep), e)
+        top = [r[be].probs.topk(k + 1, dim=-1).values for be in o]
+        gap = torch.minimum(*(t[..., k - 1] - t[..., k] for t in top))
+        wide = set_diff & (gap >= MOE_TIE)
+        if bool(wide.any()):
+            raise AssertionError(
+                f"layer {li}: {int(wide.sum())} tokens chose other experts on the two "
+                f"paths though their k-th and (k+1)-th probabilities are {MOE_TIE} or "
+                "more apart")
+        stray = keep_diff & ~affected
+        if bool(stray.any()):
+            raise AssertionError(f"layer {li}: {int(stray.sum())} choices kept on one "
+                                 "path and dropped on the other in experts whose "
+                                 "arrivals no differing choice changed")
+        agree = (~set_diff & ~keep_diff.any(-1)).reshape(b, s)
+        out = {be: moe.moe_forward(p["moe"], mdims, m[be])[0] for be in o}
+        moe_err = float((out["cuda"][agree] - out["torch"][agree]).abs().max())
+        if not moe_err <= tol(out["torch"][agree], torch.float32):
+            raise AssertionError(
+                f"layer {li}: MoE outputs of agreeing tokens differ by {moe_err} > "
+                f"{tol(out['torch'][agree], torch.float32)}")
+        keep = r["cuda"].keep
+        layers.append({"attn_max_abs_err": attn_err, "moe_max_abs_err": moe_err,
+                       "tokens_choice_differs": int(set_diff.sum()),
+                       "choices_keep_differs": int(keep_diff.sum()),
+                       "min_gap_where_choice_differs": (
+                           float(gap[set_diff].min()) if bool(set_diff.any()) else None),
+                       "kept": int(keep.sum()), "routed": keep.numel(),
+                       "capacity": r["cuda"].capacity})
+        hists.append(torch.bincount(r["cuda"].expert_ids.reshape(-1),
+                                    minlength=e).cpu().numpy())
+        rows.append(m["cuda"][keep_row:keep_row + 1].clone())
+        x = h["cuda"] + out["cuda"]
+        del o, h, m, r, out
+    return x, layers, hists, rows
+
+
+def serve_moe(dev, cfg, prompts):
+    """One MoE model through ``ServeEngine.generate``: a warm-up, a timed
+    run with the flash launch count reset just before and read just after,
+    prefill and decode device splits, then the checks against the plain
+    attention (``layer_check``, then the logits end to end). Returns the
+    record, the launch count, the parameters, and the router histograms and
+    MoE inputs ``placement_check`` takes."""
+    import torch
+
+    from repro_torch.kernels import flash_attention_cuda as tfa
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.transformer_serve import ServeEngine
+
+    t0 = time.perf_counter()
+    params = tr.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng = ServeEngine(cfg, params, max_seq=LM_MAX_SEQ, device=dev)
+    t0 = time.perf_counter()
+    eng.generate(prompts, LM_NEW)  # warm-up
+    warm_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    tfa.reset_launches()
+    t0 = time.perf_counter()
+    toks, logits = eng.run(prompts, LM_NEW)
+    total_s = time.perf_counter() - t0
+    launches = tfa.LAUNCHES["flash_attention"]
+    timing = dict(eng.last_timing)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if launches != cfg.n_layers:
+        raise AssertionError(f"{cfg.name}: generate launched the flash kernel "
+                             f"{launches} times; expected one per layer ({cfg.n_layers})")
+    if logits.shape != (len(prompts), LM_NEW, cfg.vocab) or not torch.isfinite(
+            logits).all():
+        raise AssertionError(f"{cfg.name}: logits {tuple(logits.shape)} are malformed "
+                             "or non-finite")
+
+    # device time of one prefill and of 2 decode steps, through the calls
+    # the engine makes; the prefill alone launches the whole run's flash kernels
+    plen = max(len(p) for p in prompts)
+    tokens = torch.zeros((len(prompts), plen), dtype=torch.long)
+    for i, p in enumerate(prompts):  # right-aligned, as ServeEngine.run
+        tokens[i, plen - len(p):] = torch.tensor(p)
+    tokens = tokens.to(dev)
+    tfa.reset_launches()
+    pre, pre_ops = moe_split(lambda: tr.prefill(cfg, params, {"tokens": tokens},
+                                                LM_MAX_SEQ, compute_dtype=torch.float32))
+    prefill_launches = tfa.LAUNCHES["flash_attention"]
+    if prefill_launches != launches or not pre["flash_attention"] > 0.0:
+        raise AssertionError(f"{cfg.name}: the prefill launched the flash kernel "
+                             f"{prefill_launches} times, with {pre['flash_attention']} "
+                             "device ms under its name")
+    _, cache = tr.prefill(cfg, params, {"tokens": tokens}, LM_MAX_SEQ,
+                          compute_dtype=torch.float32)
+
+    def decode_two():
+        for step in range(2):
+            tr.decode_step(cfg, params, cache, tokens[:, -1], plen + step,
+                           compute_dtype=torch.float32)
+
+    dec, dec_ops = moe_split(decode_two)
+    dec = {part: ms / 2 for part, ms in dec.items()}
+    del cache
+
+    # teacher-forced on the kernel run's tokens, with the same engine on the
+    # plain attention, every routing decision recorded
+    new = torch.tensor([t[-LM_NEW:] for t in toks], device=dev)
+    with RouteLog() as got_log:
+        _, got = eng.run(prompts, LM_NEW, forced=new)
+    plain = ServeEngine(cfg, params, max_seq=LM_MAX_SEQ, device=dev, backend="torch")
+    with RouteLog() as gold_log:
+        _, gold = plain.run(prompts, LM_NEW, forced=new)
+    if len(got_log.calls) != len(gold_log.calls):
+        raise AssertionError(f"{cfg.name}: {len(got_log.calls)} routings on the kernel "
+                             f"path, {len(gold_log.calls)} on the plain one")
+    differs = {"tokens_choice_differs": 0, "choices_keep_differs": 0, "calls_differ": 0}
+    for a, b in zip(got_log.calls, gold_log.calls):
+        set_diff, _, keep_diff = compare_routes(a, b, cfg.moe.n_experts)
+        n_set, n_keep = int(set_diff.sum()), int(keep_diff.sum())
+        differs["tokens_choice_differs"] += n_set
+        differs["choices_keep_differs"] += n_keep
+        differs["calls_differ"] += int(n_set + n_keep > 0)
+    tol_lm = LM_TOL * max(1.0, float(gold.abs().max()))
+    err = (got - gold).abs().amax(dim=(0, 2))  # per step
+    if not differs["calls_differ"] and not float(err.max()) <= tol_lm:
+        raise AssertionError(f"{cfg.name}: no routing decision differed, yet the logits "
+                             f"differ by {float(err.max())} > {tol_lm}")
+
+    steps = timing["decode_steps"]
+    record = {
+        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads, "d_head": cfg.head_dim,
+        "experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
+        "d_expert": cfg.moe.d_expert, "capacity_factor": cfg.moe.capacity_factor,
+        "vocab": cfg.vocab, "params": tr.count_params(cfg),
+        "active_params": tr.active_params(cfg), "dtype": "float32",
+        "prompt_lens": [len(p) for p in prompts], "max_seq": LM_MAX_SEQ,
+        "new_tokens": LM_NEW,
+        "prefill_ms": timing["prefill_s"] * 1e3,
+        "decode_ms_per_token": timing["decode_s"] * 1e3 / steps,
+        "generate_ms": total_s * 1e3,
+        "tokens_per_s": len(prompts) * LM_NEW / total_s,
+        "decode_tokens_per_s": len(prompts) * steps / timing["decode_s"],
+        "attention_launches": launches, "attention_launches_prefill": prefill_launches,
+        "prefill_device_ms": pre, "prefill_device_ops": pre_ops,
+        "decode_device_ms_per_step": dec, "decode_device_ops_per_step": dec_ops / 2,
+        "teacher_forced_rerun_bit_equal": bool(torch.equal(got, logits)),
+        "routing_calls": len(got_log.calls), "routing_differs": differs,
+        "max_abs_err_prefill": float(err[0]), "max_abs_err_decode": float(err[1:].max()),
+        "tolerance": tol_lm, "logits_within_tolerance": bool(float(err.max()) <= tol_lm),
+        "peak_gb": peak_gb, "init_s": init_s, "warmup_generate_s": warm_s,
+    }
+    for key, host_ms, dev_ms in (("prefill", record["prefill_ms"], pre),
+                                 ("decode", record["decode_ms_per_token"], dec)):
+        record[f"{key}_device_idle_ms"] = host_ms - sum(dev_ms.values())
+        record[f"{key}_device_idle_share"] = 1.0 - sum(dev_ms.values()) / host_ms
+    del got_log, gold_log, plain, got, gold
+
+    x, layers, hists, rows = layer_check(cfg, params, tokens, 0)
+    loop_err = float((tr._logits(cfg, params, x[:, -1:])[:, 0] - logits[:, 0]).abs().max())
+    if not loop_err <= tol_lm:
+        raise AssertionError(f"{cfg.name}: the layer check's last logits are {loop_err} "
+                             "from the engine's prefill")
+    record["layer_check"] = {
+        "per_layer": layers, "loop_vs_engine_prefill_max_abs_err": loop_err,
+        "attn_tolerance": "2e-5 * max(1, |plain|max)",
+        "moe_tolerance": "1e-4 * max(1, |plain|max), agreeing tokens",
+        "near_tie": MOE_TIE,
+        "tokens_choice_differs": sum(r["tokens_choice_differs"] for r in layers),
+        "choices_keep_differs": sum(r["choices_keep_differs"] for r in layers),
+        "attn_max_abs_err": max(r["attn_max_abs_err"] for r in layers),
+        "moe_max_abs_err": max(r["moe_max_abs_err"] for r in layers)}
+    record["kept_over_routed"] = [r["kept"] / r["routed"] for r in layers]
+    del eng, logits, x
+    return record, launches, params, hists, rows
+
+
+def placement_check(cfg, params, hists, rows):
+    """AWB placement at full width on the MoE layer whose router histogram
+    loads ``MOE_DEVICES`` devices worst under the static layout:
+    ``balance_placement`` of that histogram over ``MOE_SLOTS_PER_DEVICE``
+    slots a device (spare slots for replicas), through
+    ``tables_from_placement`` into ``moe_forward`` on that layer's input
+    (batch row 0), dropless, against the identity placement at the same
+    slot count (within 1e-5 of max|out|); the kept share at the default
+    capacity under both; every layer's static and AWB imbalance."""
+    import numpy as np
+
+    from repro_torch.core import moe_balance
+    from repro_torch.models import moe
+
+    e = cfg.moe.n_experts
+    static = moe_balance.static_placement(e, MOE_DEVICES)
+    per_layer = []
+    for h in hists:
+        load = h.astype(np.float64)
+        awb = moe_balance.balance_placement(load, MOE_DEVICES,
+                                            slots_per_device=MOE_SLOTS_PER_DEVICE)
+        per_layer.append((moe_balance.imbalance(moe_balance.device_loads(static, load)),
+                          moe_balance.imbalance(moe_balance.device_loads(awb, load))))
+    li = int(np.argmax([s for s, _ in per_layer]))
+    load = hists[li].astype(np.float64)
+    placement = moe_balance.balance_placement(load, MOE_DEVICES,
+                                              slots_per_device=MOE_SLOTS_PER_DEVICE)
+    x, p = rows[li], params["layers"][li]["moe"]
+    dims = cfg.moe_dims._replace(n_slots=MOE_DEVICES * MOE_SLOTS_PER_DEVICE)
+    tables = moe.tables_from_placement(placement, device=x.device)
+    dropless = x.shape[0] * x.shape[1] * dims.top_k
+    base, _ = moe.moe_forward(p, dims, x, capacity_override=dropless)
+    got, _ = moe.moe_forward(p, dims, x, placement=tables, capacity_override=dropless)
+    err = float((got - base).abs().max())
+    limit = 1e-5 * max(1.0, float(base.abs().max()))
+    if not err <= limit:
+        raise AssertionError(f"layer {li}: the AWB placement's dropless output differs "
+                             f"from the identity placement's by {err} > {limit}")
+    kept_static = moe.route(p, cfg.moe_dims, x).keep
+    kept_awb = moe.route(p, dims, x, placement=tables).keep
+    return {
+        "layer": li, "devices": MOE_DEVICES, "slots_per_device": MOE_SLOTS_PER_DEVICE,
+        "n_slots": dims.n_slots, "tokens": x.shape[1], "histogram": load.tolist(),
+        "replica_count": placement.replica_count.tolist(),
+        "static_imbalance": per_layer[li][0], "awb_imbalance": per_layer[li][1],
+        "dropless_max_abs_err": err, "bit_equal": err == 0.0, "tolerance": limit,
+        "kept_share_default_capacity_static": float(kept_static.float().mean()),
+        "kept_share_default_capacity_awb": float(kept_awb.float().mean()),
+        "imbalance_per_layer": [{"static": s, "awb": a} for s, a in per_layer],
+    }
+
+
+def phase_moe(dev):
+    """MoE serving on the card; see the module docstring's phase 10. Returns
+    the ``moe_serving`` record and the flash kernel's entries at the two
+    MoE models' prefill shapes."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as tr
+
+    full = configs.get_config(MOE_CUT_ARCH)
+    cut = dataclasses.replace(full, n_layers=MOE_CUT_LAYERS,
+                              segments=((("attn_moe",), MOE_CUT_LAYERS),))
+    rng = np.random.default_rng(0)
+    record, entries = {}, []
+    for cfg in (configs.get_config(MOE_ARCH), cut):
+        prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in LM_PROMPTS]
+        t0 = time.perf_counter()
+        rec, launches, params, hists, rows = serve_moe(dev, cfg, prompts)
+        if cfg.name == MOE_ARCH:
+            rec["placement"] = placement_check(cfg, params, hists, rows)
+        else:
+            rec["reduced"] = {"layers": f"{MOE_CUT_LAYERS} of {full.n_layers}",
+                              "why": f"{full.n_layers} layers in f32 hold "
+                                     f"{4 * tr.count_params(full) / 1e9:.1f} GB, over the "
+                                     "card's 80 GB"}
+        rec["phase_s"] = time.perf_counter() - t0
+        record[cfg.name] = rec
+        del params, rows
+        torch.cuda.empty_cache()
+        entries.append(flash_entry(dev, cfg.name, (len(LM_PROMPTS), max(LM_PROMPTS),
+                                                   cfg.n_heads, cfg.n_kv_heads,
+                                                   cfg.head_dim), launches))
+    return record, entries
+
+
+
 def flash_registers() -> dict:
     """Registers and spill bytes (ptxas), dynamic shared bytes and SASS
     ``HMMA`` instructions of each instantiation of the flash kernel; raises
@@ -2267,6 +2738,13 @@ def main() -> int:
     print(f"[phase 9b] mesh engine (sharded reddit, replicas, updates, a fault) in "
           f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
     del ds
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    moe_serving, moe_entries = phase_moe(dev)
+    print(f"[phase 10] served {MOE_ARCH} and {MOE_CUT_ARCH} ({MOE_CUT_LAYERS} layers) "
+          f"in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    kernels.extend(moe_entries)
+    moe_serving["card"] = card
     for entry in kernels:
         if entry["name"] in F32_SPMM:
             entry["launches_sharded_forward_batch"] = {
@@ -2296,6 +2774,7 @@ def main() -> int:
     print(json.dumps({"gcn_training": training}))
     print(json.dumps({"mesh_executor": mesh_exec}))
     print(json.dumps({"engine_mesh": mesh_engine}))
+    print(json.dumps({"moe_serving": moe_serving}))
     # the window kernel's bound if every gathered B row came from HBM, per kdim
     print(json.dumps({"spmm_balanced_bound_all_miss_ms": all_miss}))
     # the flash kernel's bounds at the prefill shape: tensor cores (3xTF32 in

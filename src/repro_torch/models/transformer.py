@@ -1,4 +1,4 @@
-"""Model assembly for the dense attention architectures.
+"""Model assembly for the attention architectures, dense and MoE.
 
 The counterpart of ``repro.models.transformer``. A model is a stack of
 *segments*, each a repeating *unit* of layer kinds. The JAX package scans
@@ -6,13 +6,16 @@ stacked per-segment parameters; the port unrolls the stack into a Python
 list of per-layer parameter dicts (``params["layers"]``) and loops over it.
 The layer kinds ported so far:
 
-  ``attn``   global causal GQA attention + dense MLP
-  ``local``  windowed attention + dense MLP
+  ``attn``      global causal GQA attention + dense MLP
+  ``local``     windowed attention + dense MLP
+  ``attn_moe``  attention + MoE FFN (AWB-balanced dispatch, ``models.moe``)
 
 Every other kind raises ``NotImplementedError`` naming the ROADMAP item that
 ports it. Entry points: ``model_forward`` (full sequence, forward only),
 ``prefill`` (build the cache) and ``decode_step`` (one token). Caches are a
-list with one ``{"k", "v"}`` dict per layer.
+list with one ``{"k", "v"}`` dict per layer. ``model_forward`` returns the
+sum of the MoE layers' aux losses beside the logits; decode runs the MoE
+dropless (capacity ``B·S·top_k``), as the JAX package does.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import common
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import (AttnDims, attn_decode, attn_forward,
                                           attn_prefill, init_attn_params,
                                           init_kv_cache)
@@ -96,11 +100,17 @@ class ModelConfig:
                         self.head_dim, self.qkv_bias, self.qk_norm,
                         self.rope, self.rope_theta, window, self.attn_chunk)
 
+    @property
+    def moe_dims(self) -> moe_mod.MoEDims:
+        m = self.moe
+        return moe_mod.MoEDims(self.d_model, m.d_expert, m.n_experts,
+                               m.top_k, m.capacity_factor, self.activation,
+                               self.glu, m.n_slots, self.moe_groups)
+
 
 #: layer kinds of the JAX package not ported yet, with the ROADMAP item
 #: (queue 1, item 8, step n) that ports them
 _LATER = {
-    "attn_moe": "ROADMAP.md queue 1, item 8.1 (attn_moe: models/moe.py)",
     "xattn": "ROADMAP.md queue 1, item 8.2 (enc/xattn: whisper)",
     "enc": "ROADMAP.md queue 1, item 8.2 (enc/xattn: whisper)",
     "rglru": "ROADMAP.md queue 1, item 8.3 (rglru: recurrentgemma)",
@@ -113,7 +123,7 @@ def layer_kinds(cfg: ModelConfig) -> list:
     kinds = [kind for unit, repeat in cfg.segments for _ in range(repeat)
              for kind in unit]
     for kind in kinds:
-        if kind not in ("attn", "local"):
+        if kind not in ("attn", "local", "attn_moe"):
             if kind in _LATER:
                 raise NotImplementedError(
                     f"layer kind {kind!r} is not ported yet: {_LATER[kind]}")
@@ -133,13 +143,17 @@ def _window(cfg: ModelConfig, kind: str) -> Optional[int]:
 
 
 def _init_layer(cfg: ModelConfig, kind: str, generator, device) -> dict:
-    return {
+    p = {
         "norm1": common.norm_params(cfg.norm, cfg.d_model, device),
         "attn": init_attn_params(generator, cfg.attn_dims(_window(cfg, kind)), device),
         "norm2": common.norm_params(cfg.norm, cfg.d_model, device),
-        "mlp": mlp_mod.init_mlp_params(generator, cfg.d_model, cfg.d_ff, cfg.glu,
-                                       device),
     }
+    if kind == "attn_moe":
+        p["moe"] = moe_mod.init_moe_params(generator, cfg.moe_dims, device)
+    else:
+        p["mlp"] = mlp_mod.init_mlp_params(generator, cfg.d_model, cfg.d_ff, cfg.glu,
+                                           device)
+    return p
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
@@ -174,6 +188,19 @@ def _leaves(tree):
 
 def count_params(cfg: ModelConfig) -> int:
     return sum(t.numel() for t in _leaves(init_params(cfg, None, device="meta")))
+
+
+def active_params(cfg: ModelConfig) -> int:
+    """Parameters touched per token (MoE: top_k of n_experts)."""
+    total = count_params(cfg)
+    if cfg.moe is None:
+        return total
+    m = cfg.moe
+    n_moe_layers = sum(rep * sum(1 for k in unit if k == "attn_moe")
+                       for unit, rep in cfg.segments)
+    per_expert = cfg.d_model * m.d_expert * (3 if cfg.glu else 2)
+    inactive = n_moe_layers * per_expert * (m.n_experts - m.top_k)
+    return total - inactive
 
 
 def params_from_jax(cfg: ModelConfig, np_params: dict, device=None) -> dict:
@@ -240,9 +267,15 @@ def _norm(cfg, p, x):
     return common.apply_norm(cfg.norm, x, p)
 
 
-def _mlp(cfg, p, x):
-    return x + mlp_mod.mlp_forward(p["mlp"], _norm(cfg, p["norm2"], x),
-                                   cfg.activation, cfg.glu)
+def _ffn(cfg, kind, p, x, capacity_override=None) -> tuple:
+    """The layer's second residual block, dense MLP or MoE. Returns (x, the
+    MoE's aux loss or None)."""
+    h = _norm(cfg, p["norm2"], x)
+    if kind == "attn_moe":
+        out, aux = moe_mod.moe_forward(p["moe"], cfg.moe_dims, h,
+                                       capacity_override=capacity_override)
+        return x + out, aux
+    return x + mlp_mod.mlp_forward(p["mlp"], h, cfg.activation, cfg.glu), None
 
 
 def _embed(params: dict, tokens: torch.Tensor, dtype) -> torch.Tensor:
@@ -260,13 +293,16 @@ def model_forward(cfg: ModelConfig, params: dict, batch: dict,
                   backend: Optional[str] = None,
                   compute_dtype=torch.bfloat16) -> tuple:
     """batch: {'tokens': [B, S] int}. Returns (logits [B, S, vocab],
-    aux_loss), the aux loss 0 for the ported kinds."""
+    aux_loss): the sum of the MoE layers' aux losses, 0 without one."""
     x = _embed(params, batch["tokens"], compute_dtype)
+    aux_total = torch.zeros((), device=x.device)
     for kind, p in zip(layer_kinds(cfg), params["layers"]):
         x = x + attn_forward(p["attn"], cfg.attn_dims(_window(cfg, kind)),
                              _norm(cfg, p["norm1"], x), backend=backend)
-        x = _mlp(cfg, p, x)
-    return _logits(cfg, params, x), torch.zeros((), device=x.device)
+        x, aux = _ffn(cfg, kind, p, x)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return _logits(cfg, params, x), aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -290,7 +326,7 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, max_seq: int,
     for kind, p, c in zip(layer_kinds(cfg), params["layers"], cache):
         h, _ = attn_prefill(p["attn"], cfg.attn_dims(_window(cfg, kind)),
                             _norm(cfg, p["norm1"], x), c, backend)
-        x = _mlp(cfg, p, x + h)
+        x, _ = _ffn(cfg, kind, p, x + h)
     return _logits(cfg, params, x[:, -1:]), cache
 
 
@@ -298,10 +334,12 @@ def decode_step(cfg: ModelConfig, params: dict, cache: list, token: torch.Tensor
                 pos: int, compute_dtype=torch.bfloat16) -> tuple:
     """token: [B] int; pos: the token's position. Returns (logits [B, 1, V],
     cache), the cache written in place. Decode attention is plain tensor
-    ops (as in the JAX package), so it takes no backend."""
+    ops (as in the JAX package), so it takes no backend. The MoE runs
+    dropless: capacity ``B·top_k`` per slot."""
     x = _embed(params, token, compute_dtype)[:, None]
+    dropless = x.shape[0] * x.shape[1] * cfg.moe.top_k if cfg.moe else None
     for kind, p, c in zip(layer_kinds(cfg), params["layers"], cache):
         h, _ = attn_decode(p["attn"], cfg.attn_dims(_window(cfg, kind)),
                            _norm(cfg, p["norm1"], x), c, pos)
-        x = _mlp(cfg, p, x + h)
+        x, _ = _ffn(cfg, kind, p, x + h, capacity_override=dropless)
     return _logits(cfg, params, x), cache

@@ -48,7 +48,8 @@ def test_port_files_exist():
               "src/repro_torch/training/optimizer.py",
               "src/repro_torch/training/checkpoint.py",
               "src/repro_torch/training/tree.py",
-              "src/repro_torch/data/__init__.py", "src/repro_torch/data/tokens.py"):
+              "src/repro_torch/data/__init__.py", "src/repro_torch/data/tokens.py",
+              "src/repro_torch/core/moe_balance.py", "src/repro_torch/models/moe.py"):
         assert f in names
     for src in ("spmm_balanced.cu", "flash_attention.cu"):
         assert (REPO / "src/repro_torch/kernels/csrc" / src).exists()
@@ -68,7 +69,7 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
             "repro_torch.configs, repro_torch.models.transformer_serve, "
             "repro_torch.launch.serve, repro_torch.tuning, repro_torch.serving, "
             "repro_torch.core.profiler, repro_torch.training.checkpoint, "
-            "repro_torch.data; "
+            "repro_torch.data, repro_torch.models.moe, repro_torch.core.moe_balance; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "assert not bad, bad; "
             "from repro_torch.kernels import _build; "

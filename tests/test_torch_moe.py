@@ -1,0 +1,315 @@
+"""Parity of the port's MoE (``core/moe_balance``, ``models/moe``) with the
+JAX package: the placement balancer array for array (``np.array_equal``) on
+a grid of expert, device and spare-slot counts; the reference's own
+balancer and layer tests re-run on the port; ``moe_forward`` and its aux
+loss within 1e-5 of the reference (``tests/test_moe.py``'s tolerance) on the
+same weights and numpy inputs — dropless, with tokens dropped by capacity,
+with a capacity override, in dispatch groups, under AWB placements with
+spare slots, and under the identity placement with more slots than experts
+(the reference's gather clamps past the last expert); ``route``'s ranks
+equal to a loop recomputation; and a JAX-package checkpoint of reduced
+granite-moe served through the port's CLI."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro import configs as jcfgs  # noqa: E402
+from repro.core import moe_balance as jbal  # noqa: E402
+from repro.models import moe as jmoe  # noqa: E402
+from repro.models import transformer as jtr  # noqa: E402
+from repro.models.transformer_serve import ServeEngine as JaxEngine  # noqa: E402
+from repro.training import checkpoint as jckpt  # noqa: E402
+from repro_torch.core import moe_balance as tbal  # noqa: E402
+from repro_torch.launch import serve as tserve  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
+
+ATOL = 1e-5
+
+# (n_experts, n_devices, spare slots a device, zipf seed)
+GRID = [(8, 2, 0, 0), (8, 8, 3, 1), (13, 4, 1, 2), (16, 4, 2, 3), (40, 4, 2, 4),
+        (40, 8, 0, 5), (64, 2, 3, 6), (64, 8, 1, 7), (33, 5, 3, 8), (20, 3, 0, 9)]
+
+
+def _placements_equal(a, b):
+    assert np.array_equal(a.slots, b.slots)
+    assert np.array_equal(a.replica_count, b.replica_count)
+    assert np.array_equal(a.replica_rank, b.replica_rank)
+    assert a.slots.dtype == b.slots.dtype
+
+
+# ---- the placement balancer -------------------------------------------------
+
+@pytest.mark.parametrize("e,d,spare,seed", GRID)
+def test_balancer_matches_reference(e, d, spare, seed):
+    load = tbal.zipf_expert_load(e, 10000, alpha=1.1, seed=seed)
+    assert np.array_equal(load, jbal.zipf_expert_load(e, 10000, alpha=1.1, seed=seed))
+    spd = -(-e // d) + spare
+    for tp, jp in ((tbal.static_placement(e, d), jbal.static_placement(e, d)),
+                   (tbal.balance_placement(load, d, slots_per_device=spd),
+                    jbal.balance_placement(load, d, slots_per_device=spd)),
+                   (tbal.balance_placement(load, d), jbal.balance_placement(load, d))):
+        _placements_equal(tp, jp)
+        loads = tbal.device_loads(tp, load)
+        assert np.array_equal(loads, jbal.device_loads(jp, load))
+        assert tbal.imbalance(loads) == jbal.imbalance(loads)
+        assign = np.random.default_rng(seed).integers(0, e, 300)
+        for a, b in zip(tbal.dispatch_plan(assign, tp), jbal.dispatch_plan(assign, jp)):
+            assert np.array_equal(a, b)
+        tables = tmoe.tables_from_placement(tp, device="cpu")
+        for got, want in zip(tables, jmoe.tables_from_placement(jp)):
+            assert got.dtype == torch.int64
+            assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+def test_balancer_raises_without_a_slot_per_expert():
+    with pytest.raises(ValueError, match="not enough slots"):
+        tbal.balance_placement(np.ones(9), 2, slots_per_device=4)
+
+
+def test_replication_fixes_evil_expert():
+    load = np.ones(16)
+    load[3] = 100.0  # evil expert
+    static = tbal.imbalance(tbal.device_loads(tbal.static_placement(16, 4), load))
+    bal = tbal.balance_placement(load, 4, slots_per_device=8)
+    awb = tbal.imbalance(tbal.device_loads(bal, load))
+    assert bal.replica_count[3] > 1
+    assert awb < static / 2
+
+
+def test_dispatch_plan_round_robins():
+    load = np.array([100.0, 1, 1, 1])
+    p = tbal.balance_placement(load, 2, slots_per_device=3)
+    assign = np.zeros(10, np.int64)  # 10 tokens to the hot expert
+    dev, slot = tbal.dispatch_plan(assign, p)
+    r = int(p.replica_count[0])
+    assert r > 1
+    assert len(set(map(tuple, zip(dev, slot)))) == r  # spread over replicas
+
+
+def test_identity_placement_matches_reference():
+    dims = tmoe.MoEDims(16, 8, 4, 2, n_slots=6)
+    for got, want in zip(tmoe.identity_placement(dims, device="cpu"),
+                         jmoe.identity_placement(jmoe.MoEDims(*dims))):
+        assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+# ---- the MoE layer ----------------------------------------------------------
+
+def _dims(**kw):
+    d = dict(d_model=16, d_ff=8, n_experts=4, top_k=2,
+             capacity_factor=64.0, activation="silu", glu=True, n_slots=0)
+    d.update(kw)
+    return tmoe.MoEDims(**d)
+
+
+def _layer(dims, seed=0, b=2, s=10):
+    """The reference's parameters (JAX arrays: their gather clamps, numpy's
+    would raise), the port's copies and a numpy input."""
+    jp = jmoe.init_moe_params(jax.random.PRNGKey(seed), jmoe.MoEDims(*dims))
+    x = np.random.default_rng(seed + 10).standard_normal((b, s, dims.d_model)).astype(
+        np.float32)
+    return jp, {k: torch.from_numpy(np.array(v)) for k, v in jp.items()}, x
+
+
+def _forward_both(dims, jp, tp, x, jplacement=None, tplacement=None, **kw):
+    jo, ja = jmoe.moe_forward(jp, jmoe.MoEDims(*dims), jnp.asarray(x),
+                              placement=jplacement, **kw)
+    to, ta = tmoe.moe_forward(tp, dims, torch.from_numpy(x), placement=tplacement, **kw)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(float(ta), float(ja), atol=ATOL, rtol=0)
+    return to
+
+
+@pytest.mark.parametrize("case,seed", [
+    (dict(), 0),                                    # dropless: capacity factor 64
+    (dict(capacity_factor=1.25), 1),
+    (dict(capacity_factor=0.01), 0),                # one row a slot
+    (dict(capacity_factor=1.25, n_experts=8, top_k=3, d_ff=12, activation="gelu"), 0),
+    (dict(glu=False, activation="relu", capacity_factor=0.8), 0),
+    (dict(n_groups=4), 0),                          # 4 divides 2 x 10 tokens
+    (dict(n_groups=3), 0),                          # it does not: one group
+    (dict(n_groups=4, capacity_factor=0.5), 0),
+], ids=lambda c: (",".join(f"{k}={v}" for k, v in c.items()) or "dropless")
+    if isinstance(c, dict) else f"seed{c}")
+def test_moe_forward_matches_reference(case, seed):
+    dims = _dims(**case)
+    jp, tp, x = _layer(dims, seed=seed)
+    _forward_both(dims, jp, tp, x)
+    r = tmoe.route(tp, dims, torch.from_numpy(x))
+    # at these capacity factors tokens really drop; at 64 none does
+    assert bool(r.keep.all()) == (dims.capacity_factor == 64.0)
+    want_groups = dims.n_groups if 20 % dims.n_groups == 0 else 1
+    assert r.slot.shape == (want_groups, 20 // want_groups * dims.top_k)
+
+
+@pytest.mark.parametrize("override", [1, 3, 40])
+def test_capacity_override_matches_reference(override):
+    dims = _dims(capacity_factor=1.25, n_experts=6, top_k=2)
+    jp, tp, x = _layer(dims, seed=3)
+    _forward_both(dims, jp, tp, x, capacity_override=override)
+    r = tmoe.route(tp, dims, torch.from_numpy(x), capacity_override=override)
+    assert r.capacity == override
+    assert bool(r.keep.all()) == (override >= 40)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("cf", [64.0, 1.0])
+def test_awb_placement_matches_reference(seed, cf):
+    """Balanced placements with spare slots (n_slots > E, hot experts
+    replicated), dropless and with drops."""
+    dims = _dims(n_slots=6, capacity_factor=cf)
+    jp, tp, x = _layer(dims, seed=seed)
+    load = tbal.zipf_expert_load(4, 1000, alpha=1.0, seed=seed)
+    placement = tbal.balance_placement(load, 2, slots_per_device=3)
+    assert placement.replica_count.max() > 1
+    _forward_both(dims, jp, tp, x, jmoe.tables_from_placement(placement),
+                  tmoe.tables_from_placement(placement, device="cpu"))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_moe_output_invariant_to_placement(seed):
+    """Replicas compute identical experts — any AWB placement must produce
+    the same output when dropless (the evil-expert adder tree is exact)."""
+    dims = _dims(n_slots=6)
+    _, tp, x = _layer(dims, seed=seed)
+    xt = torch.from_numpy(x)
+    base, _ = tmoe.moe_forward(tp, dims, xt)
+    load = tbal.zipf_expert_load(4, 1000, alpha=1.0, seed=seed)
+    tables = tmoe.tables_from_placement(
+        tbal.balance_placement(load, 2, slots_per_device=3), device="cpu")
+    got, _ = tmoe.moe_forward(tp, dims, xt, placement=tables)
+    np.testing.assert_allclose(got.numpy(), base.numpy(), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("cf", [64.0, 0.3])
+def test_identity_placement_past_the_last_expert(cf):
+    """``n_slots`` 6 over 4 experts with ``placement=None``: the reference
+    gathers ``w[arange(6)]``, which JAX clamps to the last expert."""
+    dims = _dims(n_slots=6, capacity_factor=cf)
+    jp, tp, x = _layer(dims, seed=5)
+    got = _forward_both(dims, jp, tp, x)
+    tables = tmoe.identity_placement(dims, device="cpu")
+    again, _ = tmoe.moe_forward(tp, dims, torch.from_numpy(x), placement=tables)
+    assert torch.equal(got, again)
+
+
+def test_moe_matches_dense_reference():
+    """Dropless MoE equals routing every token densely to its top-k."""
+    dims = _dims()
+    _, tp, x = _layer(dims, s=8)
+    xt = torch.from_numpy(x).reshape(-1, dims.d_model)
+    probs = torch.softmax(xt @ tp["router"], -1)
+    w, ids = torch.topk(probs, dims.top_k)
+    w = w / w.sum(-1, keepdim=True)
+    dense = torch.stack([(torch.nn.functional.silu(xt @ tp["w_gate"][e]) * (xt @ tp["w_in"][e]))
+                         @ tp["w_out"][e] for e in range(dims.n_experts)], 1)
+    ref = (torch.gather(dense, 1, ids[..., None].expand(-1, -1, dims.d_model))
+           * w[..., None]).sum(1)
+    out, aux = tmoe.moe_forward(tp, dims, torch.from_numpy(x))
+    np.testing.assert_allclose(out.reshape(-1, dims.d_model).numpy(), ref.numpy(),
+                               atol=ATOL, rtol=0)
+    assert float(aux) > 0
+
+
+def test_capacity_drops_passthrough():
+    """Tokens over capacity contribute nothing (residual passthrough)."""
+    dims = _dims(capacity_factor=0.01)  # cap = 1 slot per expert
+    _, tp, x = _layer(dims, b=1, s=16)
+    out, _ = tmoe.moe_forward(tp, dims, torch.from_numpy(x))
+    full, _ = tmoe.moe_forward(tp, dims, torch.from_numpy(x), capacity_override=64)
+    assert float(out.abs().sum()) < float(full.abs().sum())
+
+
+def _loop_ranks(ids):
+    """Arrival rank of each element within its bucket, per group: a loop."""
+    out = np.zeros_like(ids)
+    for gi in range(ids.shape[0]):
+        seen = {}
+        for i, v in enumerate(ids[gi]):
+            out[gi, i] = seen.get(int(v), 0)
+            seen[int(v)] = out[gi, i] + 1
+    return out
+
+
+@pytest.mark.parametrize("case", [dict(capacity_factor=1.0), dict(n_groups=2),
+                                  dict(n_slots=6, capacity_factor=0.7)])
+def test_route_decisions_equal_a_loop(case):
+    dims = _dims(**case)
+    _, tp, x = _layer(dims, seed=7, b=3, s=12)
+    placement = None
+    if dims.n_slots:
+        placement = tmoe.tables_from_placement(tbal.balance_placement(
+            np.array([50.0, 1, 1, 9]), 2, slots_per_device=3), device="cpu")
+    r = tmoe.route(tp, dims, torch.from_numpy(x), placement)
+    g = r.slot.shape[0]
+    probs = r.probs.numpy()
+    order = np.argsort(-probs, axis=-1, kind="stable")[..., :dims.top_k]
+    assert np.array_equal(r.expert_ids.numpy(), order)
+    top = np.take_along_axis(probs, order, -1)
+    np.testing.assert_allclose(r.gate_w.numpy(), top / top.sum(-1, keepdims=True),
+                               rtol=1e-6)
+    flat_e = order.reshape(g, -1)
+    if placement is None:
+        want_slot = flat_e
+    else:
+        reps = placement.n_replicas.numpy()[flat_e]
+        want_slot = placement.slot_of.numpy()[flat_e, _loop_ranks(flat_e) % reps]
+    assert np.array_equal(r.slot.numpy(), want_slot)
+    assert np.array_equal(r.pos.numpy(), _loop_ranks(want_slot))
+    tgk = r.slot.shape[1]
+    n_slots = dims.n_slots or dims.n_experts
+    cap = max(1, int(dims.capacity_factor * (tgk // dims.top_k) * dims.top_k / n_slots))
+    assert r.capacity == cap
+    assert np.array_equal(r.keep.numpy(), r.pos.numpy() < cap)
+
+
+def test_rank_within_is_exact_on_long_runs():
+    ids = np.random.default_rng(0).integers(0, 5, (3, 4000))
+    got = tmoe.rank_within(torch.from_numpy(ids)).numpy()
+    assert np.array_equal(got, _loop_ranks(ids))
+
+
+def test_init_moe_params_shapes_and_scale():
+    dims = _dims(n_experts=5, d_model=64, d_ff=32)
+    p = tmoe.init_moe_params(torch.Generator().manual_seed(0), dims)
+    jp = jmoe.init_moe_params(jax.random.PRNGKey(0), jmoe.MoEDims(*dims))
+    assert {k: tuple(v.shape) for k, v in p.items()} == {k: v.shape for k, v in jp.items()}
+    assert abs(float(p["w_in"].std()) - 64 ** -0.5) < 0.01
+    assert abs(float(p["w_out"].std()) - 32 ** -0.5) < 0.01
+
+
+# ---- serving a JAX-package checkpoint ----------------------------------------
+
+def test_serve_restores_a_jax_moe_checkpoint(tmp_path, capsys):
+    arch = "granite-moe-3b-a800m"
+    cfg = jcfgs.get_reduced_config(arch)
+    jp = jtr.init_params(cfg, jax.random.PRNGKey(4))
+    jckpt.CheckpointManager(tmp_path).save(3, (jp,))
+    outs = tserve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                        "--ckpt-dir", str(tmp_path), "--prompts", "1 2 3;7 8",
+                        "--max-new", "6"])
+    assert "restored step 3" in capsys.readouterr().out
+    assert outs == JaxEngine(cfg, jp, max_seq=64).generate([[1, 2, 3], [7, 8]],
+                                                           max_new_tokens=6)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "qwen3-moe-30b-a3b"])
+def test_serve_cli_runs_moe_archs(arch, capsys):
+    outs = tserve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                        "--max-new", "4"])
+    assert [len(o) for o in outs] == [7, 6]
+    assert "tok/s" in capsys.readouterr().out
+
+
+def test_reduced_moe_config_keeps_the_capacity_factor():
+    from repro_torch import configs as tcfgs
+
+    for arch in ("granite-moe-3b-a800m", "qwen3-moe-30b-a3b"):
+        t, j = tcfgs.get_reduced_config(arch), jcfgs.get_reduced_config(arch)
+        assert dataclasses.asdict(t.moe) == dataclasses.asdict(j.moe)
+        assert tuple(t.moe_dims) == tuple(j.moe_dims)
