@@ -13,9 +13,12 @@ Builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    blocked with evil rows, row-reordered).
 1b. Holds the flash-attention kernel against its plain version over the JAX
    kernel tests' sweep (GQA, Sq < Sk, ragged tiles, causal on and off,
-   windows 8 and 24, bf16), at D 64 and 128 with S 1000, and at lengths that
-   cut its query tiles and its cp.async ring at every edge (1, 15, 17, 63,
-   65, 129, 1000; Sq < Sk with windows; every D; GQA groups 1, 2 and 7).
+   windows 8 and 24, bf16), at D 64, 128 and 256 with S 1000, and at lengths
+   that cut its query tiles and its cp.async ring at every edge (1, 15, 17,
+   63, 65, 129, 1000; Sq < Sk with windows; every D; GQA groups 1, 2, 7 and
+   10), and with Sq > Sk (cross-attention), where only the rows that see a
+   key are compared: causal rows before the first key are defined by no
+   version.
 2. Serves 3 batches of 4 requests on the full-width ``reddit`` graph
    (232,965 nodes, 602 features, hidden 128, 41 classes) through the port's
    GCN path — ``registry.get_executor`` → ``ScheduleExecutor.forward_batch``
@@ -155,6 +158,30 @@ Builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    output dropless; static and AWB imbalances for every layer. Times the
    flash kernel beside its plain version and
    ``scaled_dot_product_attention`` at both models' prefill shapes.
+11. Serves whisper-tiny (``enc`` and ``xattn`` layers) at full width and
+   depth (4 encoder and 4 decoder layers, d_model 384, 6 heads, D 64, vocab
+   51,865; seeded random f32 weights) through ``ServeEngine.run`` with
+   ``source_embed``: 4 seeded ``[1500, 384]`` frame embeddings, prompts of 4
+   seeded tokens, ``max_seq`` 448 (the decoder's published context), 64 new
+   tokens. A warm-up, then a timed run with the flash launch count reset
+   just before and read just after: 4 encoder, 4 self- and 4
+   cross-attention launches in the prefill, then 4 cross-attention launches
+   a decode step. ``torch.profiler`` device splits of the prefill and a
+   decode step (flash, dense, ``rglru.scan``/``rglru.conv``, the rest, and
+   the host's idle share); the logits of a teacher-forced run against the
+   plain-attention engine at the LM tolerance. Times the flash kernel, its
+   plain version and ``scaled_dot_product_attention`` at the encoder's shape
+   (B 4, S 1500, H 6, D 64, non-causal) and at a decode step's
+   cross-attention (Sq 1, Sk 1500).
+12. The same for recurrentgemma-2b (``rglru`` and ``local`` layers,
+   ``(rglru, rglru, local) × 8 + (rglru, rglru)``) at full width and depth
+   (26 layers, d_model 2560, 10 heads on 1 KV head, D 256, window 2048,
+   vocab 256,000; 14.2 GB of f32 weights) with phase 4's prompts,
+   ``max_seq`` 2080 and 32 new tokens: 8 flash launches, all in the
+   prefill; decode at positions 2048–2078 wraps the local layers' ring of
+   2048 slots. Times the flash kernel at D 256 (B 4, S 2048, H 10, Hkv 1,
+   causal, window 2048) in f32 and in bf16 beside its plain version and
+   ``scaled_dot_product_attention``.
 
 Float32 matmuls and cuDNN run without TF32 (both flags are set False), so
 every float32 product is full float32. Tolerances, each scaled by
@@ -174,8 +201,11 @@ kernels line names phase 8's Aᵀ entries ``...@AT``; its f32 SpMM entries
 carry their launches per sharded ``forward_batch``), a
 ``{"mesh_executor": ...}`` and an ``{"engine_mesh": ...}`` line, a
 ``{"moe_serving": ...}`` line (the kernels line names phase 10's flash
-entries ``flash_attention@<arch>``), the card's name and power limit, and as
-its last line
+entries ``flash_attention@<arch>``), ``{"whisper_serving": ...}`` and
+``{"recurrentgemma_serving": ...}`` lines (phases 11 and 12; their flash
+entries ``flash_attention@whisper-tiny`` and
+``flash_attention@recurrentgemma-2b``), the card's name and power limit, and
+as its last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device, or without the rest of the repository, it exits
 non-zero and prints no result.
@@ -249,6 +279,13 @@ MOE_ARCH, MOE_CUT_ARCH, MOE_CUT_LAYERS = "granite-moe-3b-a800m", "qwen3-moe-30b-
 MOE_DEVICES, MOE_SLOTS_PER_DEVICE, MOE_TIE = 4, 12, 1e-5
 MOE_PARTS = ("router", "dispatch", "experts", "combine", "flash_attention", "dense",
              "other")
+# phase 11: whisper-tiny's prompts (4 tokens each), the decoder's published
+# context as the cache length, and new tokens; phase 12: recurrentgemma-2b
+# with phase 4's prompts, cache length and new tokens; their device split's parts
+WHISPER_ARCH, WHISPER_PROMPTS, WHISPER_MAX_SEQ, WHISPER_NEW = (
+    "whisper-tiny", (4, 4, 4, 4), 448, 64)
+RG_ARCH = "recurrentgemma-2b"
+LM_PARTS = ("flash_attention", "dense", "rglru.scan", "rglru.conv", "other")
 # the flash kernel's checks: (b, sq, sk, h, hkv, d), the JAX kernel tests'
 # shapes then the configs' head widths at a length no tile divides
 ATTN_SHAPES = [(2, 32, 32, 4, 4, 16), (1, 48, 48, 8, 2, 32), (2, 16, 64, 4, 1, 16),
@@ -260,7 +297,17 @@ ATTN_SHAPES = [(2, 32, 32, 4, 4, 16), (1, 48, 48, 8, 2, 32), (2, 16, 64, 4, 1, 1
                (1, 63, 63, 4, 2, 128), (1, 65, 65, 2, 1, 16), (2, 129, 129, 2, 2, 32),
                (1, 129, 129, 14, 2, 64), (1, 15, 63, 2, 2, 16), (1, 1, 129, 4, 2, 64),
                (1, 65, 1000, 4, 2, 32), (1, 17, 1000, 7, 1, 128),
-               (1, 129, 1000, 14, 2, 16)]
+               (1, 129, 1000, 14, 2, 16),
+               # head width 256 (recurrentgemma-2b's local layers): MQA with
+               # group 10, ragged 16-key f32 and 64-query tiles, Sq < Sk
+               (1, 130, 130, 10, 1, 256), (2, 65, 65, 4, 2, 256), (1, 1, 1, 2, 1, 256),
+               (1, 17, 300, 10, 1, 256), (1, 1, 129, 10, 1, 256),
+               (1, 1000, 1000, 10, 1, 256)]
+# Sq > Sk (cross-attention over fewer keys than queries): the causal rows
+# before the first key see none and are defined by no version, so only the
+# rows that see a key are compared
+ATTN_SQ_OVER_SK = [(1, 200, 70, 6, 6, 64), (2, 100, 33, 4, 2, 16),
+                   (1, 300, 70, 4, 2, 256), (1, 130, 17, 10, 1, 256)]
 ATTN_MASKS = [(True, None), (False, None), (True, 8), (True, 24), (False, 24)]
 # the bf16 flash check at the prefill shape beside the JAX tolerance: each
 # output row's RMS error over the row's RMS in the plain version. bf16 keeps
@@ -1942,19 +1989,27 @@ def phase_attention_small(dev):
     from repro_torch.kernels import flash_attention_cuda as tfa
 
     cases, max_err = 0, 0.0
-    for shape in ATTN_SHAPES:
+    for shape in ATTN_SHAPES + ATTN_SQ_OVER_SK:
         rng = np.random.default_rng(sum(shape))
         b, sq, sk, h, hkv, d = shape
         base = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
                 for s in ((b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, d))]
+        qpos = torch.arange(sq, device=dev) + sk - sq
         for causal, window in ATTN_MASKS:
+            # the rows that see at least one key
+            hi = torch.clamp(qpos + 1, max=sk) if causal else torch.full_like(qpos, sk)
+            lo = torch.clamp(qpos - window + 1, min=0) if window else torch.zeros_like(qpos)
+            rows = hi > lo
             for dtype in (torch.float32, torch.bfloat16):
                 q, k, v = (t.to(dtype) for t in base)
                 got = tfa.flash_attention(q, k, v, causal=causal, window=window)
                 gold = tfa.flash_attention_plain(q.float(), k.float(), v.float(),
                                                  causal=causal, window=window)
+                if got.dtype != dtype:
+                    raise AssertionError(f"flash_attention {shape}: {got.dtype} out")
+                got, gold = got[:, rows], gold[:, rows]
                 err = float((got.float() - gold).abs().max())
-                if got.dtype != dtype or not err <= attn_tol(gold, dtype):
+                if not err <= attn_tol(gold, dtype):
                     raise AssertionError(
                         f"flash_attention {shape} causal={causal} window={window} "
                         f"{dtype}: max |err| {err} > {attn_tol(gold, dtype)}")
@@ -1965,114 +2020,19 @@ def phase_attention_small(dev):
     return cases, max_err
 
 
-def device_split(fn):
-    """Device ms of ``fn`` by kernel class under ``torch.profiler``, and the
-    number of device operations it ran (kernels, copies, fills)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-    split, ops = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}, 0
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        key = e.key.lower()
-        kind = ("flash_attention" if "flash_attention_kernel" in key else "matmul"
-                if any(w in key for w in ("gemm", "gemv", "xmma", "cutlass")) else "other")
-        split[kind] += e.self_device_time_total / 1e3
-        ops += e.count
-    return split, ops
-
-
 def phase_lm(dev):
-    """LM serving at full width through ``ServeEngine.generate``; returns
-    the ``lm_serving`` record and the main path's attention launch count."""
+    """qwen2-0.5b at full width through ``serve_checked``; see the module
+    docstring's phase 4. Returns the ``lm_serving`` record and the main
+    path's flash launch count (one per layer, all in the prefill)."""
     import numpy as np
-    import torch
 
     from repro_torch import configs
-    from repro_torch.kernels import flash_attention_cuda as tfa
-    from repro_torch.models import transformer as tr
-    from repro_torch.models.transformer_serve import ServeEngine
 
     cfg = configs.get_config(LM_ARCH)
-    t0 = time.perf_counter()
-    params = tr.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in LM_PROMPTS]
-    eng = ServeEngine(cfg, params, max_seq=LM_MAX_SEQ, device=dev)
-    t0 = time.perf_counter()
-    eng.generate(prompts, LM_NEW)  # warm-up
-    warm_s = time.perf_counter() - t0
-
-    torch.cuda.reset_peak_memory_stats(dev)
-    tfa.reset_launches()
-    t0 = time.perf_counter()
-    toks, logits = eng.run(prompts, LM_NEW)
-    total_s = time.perf_counter() - t0
-    launches = tfa.LAUNCHES["flash_attention"]
-    timing = dict(eng.last_timing)
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    if launches != cfg.n_layers:
-        raise AssertionError(f"prefill launched the flash kernel {launches} times; "
-                             f"expected one per layer ({cfg.n_layers})")
-    if logits.shape != (len(prompts), LM_NEW, cfg.vocab) or not torch.isfinite(
-            logits).all():
-        raise AssertionError(f"logits {tuple(logits.shape)} are malformed or non-finite")
-
-    # device time of the prefill alone, then of the prefill and 2 decode steps
-    pre, pre_ops = device_split(lambda: eng.run(prompts, 1))
-    if pre["flash_attention"] <= 0.0:
-        raise AssertionError(
-            f"the prefill launched the flash kernel {launches} times, but its device "
-            "split counts no time under flash_attention: the kernel's name no longer "
-            "matches device_split's")
-    both, both_ops = device_split(lambda: eng.run(prompts, 3))
-    dec = {k: (both[k] - pre[k]) / 2 for k in pre}
-
-    new = torch.tensor([t[-LM_NEW:] for t in toks], device=dev)
-    plain = ServeEngine(cfg, params, max_seq=LM_MAX_SEQ, device=dev, backend="torch")
-    _, gold = plain.run(prompts, LM_NEW, forced=new)
-    tol_lm = LM_TOL * max(1.0, float(gold.abs().max()))
-    err = (logits - gold).abs().amax(dim=(0, 2))  # per step
-    if not float(err.max()) <= tol_lm:
-        raise AssertionError(f"LM logits: max |err| {float(err.max())} > {tol_lm}")
-    top2 = gold.topk(2, dim=-1).values
-    decided = (top2[..., 0] - top2[..., 1]) > tol_lm
-    mismatch = decided & (gold.argmax(-1) != new)
-    if bool(mismatch.any()):
-        raise AssertionError(f"{int(mismatch.sum())} generated tokens differ from the "
-                             "plain path where its top two logits are apart")
-    n_new = len(prompts) * LM_NEW
-    steps = timing["decode_steps"]
-    record = {
-        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
-        "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads, "d_head": cfg.head_dim,
-        "vocab": cfg.vocab, "params": tr.count_params(cfg), "dtype": "float32",
-        "prompt_lens": list(LM_PROMPTS), "padded_len": max(LM_PROMPTS),
-        "max_seq": LM_MAX_SEQ, "new_tokens": LM_NEW,
-        "prefill_ms": timing["prefill_s"] * 1e3,
-        "decode_ms_per_token": timing["decode_s"] * 1e3 / steps,
-        "generate_ms": total_s * 1e3,
-        "tokens_per_s": n_new / total_s,
-        "decode_tokens_per_s": len(prompts) * steps / timing["decode_s"],
-        "prefill_tokens_per_s": len(prompts) * max(LM_PROMPTS) / timing["prefill_s"],
-        "attention_launches": launches,
-        "max_abs_err_prefill": float(err[0]),
-        "max_abs_err_decode": float(err[1:].max()),
-        "prefill_device_ms": pre, "decode_device_ms_per_step": dec,
-        "decode_device_ops_per_step": (both_ops - pre_ops) / 2,
-        "decode_device_busy": sum(dec.values()) / (timing["decode_s"] * 1e3 / steps),
-        "tolerance": tol_lm, "tokens_decided": int(decided.sum()),
-        "tokens_total": n_new, "peak_gb": peak_gb, "init_s": init_s,
-        "warmup_generate_s": warm_s,
-    }
-    del params, eng, plain, logits, gold
-    torch.cuda.empty_cache()
-    return record, launches
+    return serve_checked(dev, cfg, prompts, LM_MAX_SEQ, LM_NEW, cfg.n_layers,
+                         cfg.n_layers)
 
 
 def visible_pairs(sq: int, sk: int, causal: bool, window) -> int:
@@ -2179,66 +2139,94 @@ def phase_attention_time(dev, launches, small_err):
     return entry, bounds
 
 
-def flash_entry(dev, tag, shape, launches):
+def flash_timing(dev, shape, causal=True, window=None, dtype=None):
     """The flash kernel vs its plain version and ``scaled_dot_product_attention``
-    at one MoE model's prefill shape ``(b, s, h, hkv, d)``, causal, f32, timed
-    in turns (kernel, library, library, kernel): its ``kernels`` entry
-    ``flash_attention@<tag>``, ``launches`` from that model's main run."""
+    at ``shape = (b, sq, sk, h, hkv, d)``, in f32 (or ``dtype``), timed in
+    turns (kernel, library, library, kernel); holds the kernel to the plain
+    version at the attention tolerance. Returns the timings, errors and
+    the call's bound (the larger of HBM and the tensor-core bound of the
+    arithmetic the path issues: 3xTF32 in f32, bf16 in bf16)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention_cuda as tfa
 
-    b, s, h, hkv, d = shape
+    dtype = dtype or torch.float32
+    b, sq, sk, h, hkv, d = shape
     gen = torch.Generator(device=dev).manual_seed(3)
-    q, k, v = (torch.randn((b, s, n, d), generator=gen, device=dev)
-               for n in (h, hkv, hkv))
+    q, k, v = (torch.randn((b, n, m, d), generator=gen, device=dev).to(dtype)
+               for n, m in ((sq, h), (sk, hkv), (sk, hkv)))
+    mask = None
+    qpos = torch.arange(sq, device=dev)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device=dev)[None, :]
+    if window is not None and bool((kpos <= qpos - window).any()):
+        mask = kpos > qpos - window  # the window cuts keys: SDPA needs it spelt out
+        if causal:
+            mask &= kpos <= qpos
 
     def sdpa():
         return F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+            is_causal=causal and mask is None and sq == sk,
             enable_gqa=True).transpose(1, 2)
 
-    def kernel():
-        return tfa.flash_attention(q, k, v, causal=True)
+    if causal and mask is None and sq != sk:
+        raise ValueError("SDPA's is_causal aligns queries at 0, the kernel at Sk − Sq")
 
-    gold = tfa.flash_attention_plain(q, k, v, causal=True)
-    err = float((kernel() - gold).abs().max())
-    if not err <= attn_tol(gold, torch.float32):
-        raise AssertionError(f"flash_attention@{tag} {shape}: max |err| {err} > "
-                             f"{attn_tol(gold, torch.float32)}")
-    lib_diff = float((sdpa() - gold).abs().max())
+    def kernel():
+        return tfa.flash_attention(q, k, v, causal=causal, window=window)
+
+    gold = tfa.flash_attention_plain(q.float(), k.float(), v.float(), causal=causal,
+                                     window=window)
+    err = float((kernel().float() - gold).abs().max())
+    if not err <= attn_tol(gold, dtype):
+        raise AssertionError(f"flash_attention {shape} causal={causal} window={window} "
+                             f"{dtype}: max |err| {err} > {attn_tol(gold, dtype)}")
+    lib_diff = float((sdpa().float() - gold).abs().max())
     del gold
     ms = [timed_ms(kernel, 20)]
     lib_ms = [timed_ms(sdpa, 20) for _ in range(2)]
     ms.append(timed_ms(kernel, 20))
-    plain_ms = timed_ms(lambda: tfa.flash_attention_plain(q, k, v, causal=True), 3)
-    flops = 4 * d * visible_pairs(s, s, True, None) * b * h
-    bytes_ms = (2 * q.numel() + k.numel() + v.numel()) * 4 / PEAK_BYTES_PER_S * 1e3
-    ops_ms = 3 * flops / PEAK_TF32_FLOPS * 1e3  # 3xTF32: three passes
-    return {
-        "name": f"flash_attention@{tag}", "route": "cuda", "source": tfa.SOURCE,
-        "replaces": tfa.REPLACES, "launches": launches, "max_abs_err": err,
-        "ms": float(np.mean(ms)), "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": float(np.mean(lib_ms)), "library_max_abs_diff": lib_diff,
-        "ms_runs": ms, "library_runs_ms": lib_ms, "flops": flops,
-        "per": f"one call at B {b}, S {s}, H {h}, Hkv {hkv}, D {d} (GQA group "
-               f"{h // hkv}), causal, f32; launches counted over one generate of "
-               f"{tag} (one per layer's prefill); bound_ms is the larger of the "
-               "f32 path's tensor-core bound (3xTF32) and HBM",
-    }
+    plain_ms = timed_ms(lambda: tfa.flash_attention_plain(q, k, v, causal=causal,
+                                                          window=window), 3)
+    flops = 4 * d * visible_pairs(sq, sk, causal, window) * b * h
+    bytes_ms = ((2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+                / PEAK_BYTES_PER_S * 1e3)
+    ops_ms = (3 * flops / PEAK_TF32_FLOPS if dtype == torch.float32  # three passes
+              else flops / PEAK_BF16_FLOPS) * 1e3
+    return {"max_abs_err": err, "ms": float(np.mean(ms)), "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": float(np.mean(lib_ms)), "library_max_abs_diff": lib_diff,
+            "ms_runs": ms, "library_runs_ms": lib_ms, "flops": flops}
 
 
-def moe_split(fn):
+def flash_entry(dev, tag, shape, launches, causal=True, window=None, per=""):
+    """The kernels line's ``flash_attention@<tag>`` entry at one model's
+    shape ``(b, sq, sk, h, hkv, d)`` in f32 (``flash_timing``), with
+    ``launches`` from that model's main run."""
+    from repro_torch.kernels import flash_attention_cuda as tfa
+
+    b, sq, sk, h, hkv, d = shape
+    entry = {"name": f"flash_attention@{tag}", "route": "cuda", "source": tfa.SOURCE,
+             "replaces": tfa.REPLACES, "launches": launches}
+    entry.update(flash_timing(dev, shape, causal, window))
+    mask = ("causal" if causal else "non-causal") + (f", window {window}" if window else "")
+    entry["per"] = (f"one call at B {b}, Sq {sq}, Sk {sk}, H {h}, Hkv {hkv}, D {d} "
+                    f"(GQA group {h // hkv}), {mask}, f32; launches counted over one "
+                    f"generate of {tag}{per}; bound_ms is the larger of the f32 path's "
+                    "tensor-core bound (3xTF32) and HBM")
+    return entry
+
+
+def timeline_split(fn, part_of_span, parts):
     """Device ms of ``fn`` by part under ``torch.profiler``: a kernel that
-    starts inside one of the MoE's ranges on the device timeline
-    (``moe.router``, ``moe.dispatch``, ``moe.experts``, ``moe.combine``)
-    counts there; the others count as ``flash_attention``, ``dense`` (the
-    other matrix products: projections and the LM head) or ``other``.
-    Returns the split and the number of device operations."""
+    starts inside a profiler range on the device timeline whose part
+    ``part_of_span(name)`` gives (None for other ranges) counts there; the
+    others count as ``flash_attention``, ``dense`` (the other matrix
+    products: projections, MLP and the LM head) or ``other``. Returns the
+    split over ``parts`` and the number of device operations."""
     import bisect
 
     from torch.autograd import DeviceType
@@ -2249,22 +2237,32 @@ def moe_split(fn):
     spans, work = [], []
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            (spans if e.name.startswith("moe.") else work).append(e)
+            (spans if part_of_span(e.name) else work).append(e)
     spans.sort(key=lambda e: e.time_range.start)
     starts = [e.time_range.start for e in spans]
-    split = dict.fromkeys(MOE_PARTS, 0.0)
+    split = dict.fromkeys(parts, 0.0)
     for e in work:
         i = bisect.bisect_right(starts, e.time_range.start) - 1
         name = e.name.lower()
         part = ("flash_attention" if "flash_attention_kernel" in name
-                else spans[i].name[4:] if i >= 0 and e.time_range.start < spans[i].time_range.end
+                else part_of_span(spans[i].name)
+                if i >= 0 and e.time_range.start < spans[i].time_range.end
                 else "dense" if any(w in name for w in ("gemm", "gemv", "xmma", "cutlass"))
                 else "other")
         split[part] += e.time_range.elapsed_us() / 1e3
+    return split, len(work)
+
+
+def moe_split(fn):
+    """Device ms of ``fn`` by part (``timeline_split``): the MoE's ranges
+    ``moe.router``, ``moe.dispatch``, ``moe.experts`` and ``moe.combine``,
+    then ``flash_attention``, ``dense`` and ``other``."""
+    split, ops = timeline_split(
+        fn, lambda name: name[4:] if name.startswith("moe.") else None, MOE_PARTS)
     if not (split["experts"] > 0.0 and split["router"] > 0.0):
         raise AssertionError(f"the MoE ranges hold no device time: {split}; the "
                              "ranges' names no longer match moe_split's")
-    return split, len(work)
+    return split, ops
 
 
 class RouteLog:
@@ -2387,13 +2385,15 @@ def layer_check(cfg, params, tokens, keep_row):
     return x, layers, hists, rows
 
 
-def serve_moe(dev, cfg, prompts):
-    """One MoE model through ``ServeEngine.generate``: a warm-up, a timed
-    run with the flash launch count reset just before and read just after,
-    prefill and decode device splits, then the checks against the plain
-    attention (``layer_check``, then the logits end to end). Returns the
-    record, the launch count, the parameters, and the router histograms and
-    MoE inputs ``placement_check`` takes."""
+def timed_serve(dev, cfg, prompts, max_seq, new, launches, prefill_launches, split,
+                source=None):
+    """One model through ``ServeEngine.run`` on seeded random f32 weights: a
+    warm-up, then a timed run with the flash launch count reset just before
+    and read just after (it must be ``launches``, and finite logits of the
+    right shape); then the device split (``split``) of one prefill, which
+    must launch the kernel ``prefill_launches`` times and show its time, and
+    of 2 decode steps, through the calls the engine makes. Returns the
+    parameters, the engine, the run's tokens and logits, and the record."""
     import torch
 
     from repro_torch.kernels import flash_attention_cuda as tfa
@@ -2404,53 +2404,95 @@ def serve_moe(dev, cfg, prompts):
     params = tr.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    eng = ServeEngine(cfg, params, max_seq=LM_MAX_SEQ, device=dev)
+    eng = ServeEngine(cfg, params, max_seq=max_seq, device=dev)
     t0 = time.perf_counter()
-    eng.generate(prompts, LM_NEW)  # warm-up
+    eng.run(prompts, new, source_embed=source)  # warm-up
     warm_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats(dev)
     tfa.reset_launches()
     t0 = time.perf_counter()
-    toks, logits = eng.run(prompts, LM_NEW)
+    toks, logits = eng.run(prompts, new, source_embed=source)
     total_s = time.perf_counter() - t0
-    launches = tfa.LAUNCHES["flash_attention"]
+    got = tfa.LAUNCHES["flash_attention"]
     timing = dict(eng.last_timing)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    if launches != cfg.n_layers:
-        raise AssertionError(f"{cfg.name}: generate launched the flash kernel "
-                             f"{launches} times; expected one per layer ({cfg.n_layers})")
-    if logits.shape != (len(prompts), LM_NEW, cfg.vocab) or not torch.isfinite(
-            logits).all():
+    if got != launches:
+        raise AssertionError(f"{cfg.name}: generate launched the flash kernel {got} "
+                             f"times; expected {launches}")
+    if logits.shape != (len(prompts), new, cfg.vocab) or not torch.isfinite(logits).all():
         raise AssertionError(f"{cfg.name}: logits {tuple(logits.shape)} are malformed "
                              "or non-finite")
 
-    # device time of one prefill and of 2 decode steps, through the calls
-    # the engine makes; the prefill alone launches the whole run's flash kernels
+    plen = max(len(p) for p in prompts)
+    tokens = torch.zeros((len(prompts), plen), dtype=torch.long)
+    for i, p in enumerate(prompts):  # right-aligned, as ServeEngine.run
+        tokens[i, plen - len(p):] = torch.tensor(p)
+    batch = {"tokens": tokens.to(dev)}
+    if source is not None:
+        batch["source_embed"] = source
+    tfa.reset_launches()
+    pre, pre_ops = split(lambda: tr.prefill(cfg, params, batch, max_seq,
+                                            compute_dtype=torch.float32))
+    got = tfa.LAUNCHES["flash_attention"]
+    if got != prefill_launches or not pre["flash_attention"] > 0.0:
+        raise AssertionError(f"{cfg.name}: the prefill launched the flash kernel {got} "
+                             f"times, with {pre['flash_attention']} device ms under "
+                             "its name")
+    _, cache = tr.prefill(cfg, params, batch, max_seq, compute_dtype=torch.float32)
+
+    def decode_two():
+        for step in range(2):
+            tr.decode_step(cfg, params, cache, batch["tokens"][:, -1], plen + step,
+                           compute_dtype=torch.float32)
+
+    dec, dec_ops = split(decode_two)
+    dec = {part: ms / 2 for part, ms in dec.items()}
+    del cache
+
+    steps = timing["decode_steps"]
+    record = {
+        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads, "d_head": cfg.head_dim,
+        "vocab": cfg.vocab, "params": tr.count_params(cfg), "dtype": "float32",
+        "prompt_lens": [len(p) for p in prompts], "max_seq": max_seq, "new_tokens": new,
+        "prefill_ms": timing["prefill_s"] * 1e3,
+        "decode_ms_per_token": timing["decode_s"] * 1e3 / steps,
+        "generate_ms": total_s * 1e3,
+        "tokens_per_s": len(prompts) * new / total_s,
+        "decode_tokens_per_s": len(prompts) * steps / timing["decode_s"],
+        "attention_launches": launches, "attention_launches_prefill": prefill_launches,
+        "prefill_device_ms": pre, "prefill_device_ops": pre_ops,
+        "decode_device_ms_per_step": dec, "decode_device_ops_per_step": dec_ops / 2,
+        "peak_gb": peak_gb, "init_s": init_s, "warmup_generate_s": warm_s,
+    }
+    for key, host_ms, dev_ms in (("prefill", record["prefill_ms"], pre),
+                                 ("decode", record["decode_ms_per_token"], dec)):
+        record[f"{key}_device_idle_ms"] = host_ms - sum(dev_ms.values())
+        record[f"{key}_device_idle_share"] = 1.0 - sum(dev_ms.values()) / host_ms
+    return params, eng, toks, logits, record
+
+
+def serve_moe(dev, cfg, prompts):
+    """One MoE model through ``ServeEngine.generate``: a warm-up, a timed
+    run with the flash launch count reset just before and read just after,
+    prefill and decode device splits, then the checks against the plain
+    attention (``layer_check``, then the logits end to end). Returns the
+    record, the launch count, the parameters, and the router histograms and
+    MoE inputs ``placement_check`` takes."""
+    import torch
+
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.transformer_serve import ServeEngine
+
+    # one flash launch per layer, all in the prefill
+    params, eng, toks, logits, record = timed_serve(
+        dev, cfg, prompts, LM_MAX_SEQ, LM_NEW, cfg.n_layers, cfg.n_layers, moe_split)
     plen = max(len(p) for p in prompts)
     tokens = torch.zeros((len(prompts), plen), dtype=torch.long)
     for i, p in enumerate(prompts):  # right-aligned, as ServeEngine.run
         tokens[i, plen - len(p):] = torch.tensor(p)
     tokens = tokens.to(dev)
-    tfa.reset_launches()
-    pre, pre_ops = moe_split(lambda: tr.prefill(cfg, params, {"tokens": tokens},
-                                                LM_MAX_SEQ, compute_dtype=torch.float32))
-    prefill_launches = tfa.LAUNCHES["flash_attention"]
-    if prefill_launches != launches or not pre["flash_attention"] > 0.0:
-        raise AssertionError(f"{cfg.name}: the prefill launched the flash kernel "
-                             f"{prefill_launches} times, with {pre['flash_attention']} "
-                             "device ms under its name")
-    _, cache = tr.prefill(cfg, params, {"tokens": tokens}, LM_MAX_SEQ,
-                          compute_dtype=torch.float32)
-
-    def decode_two():
-        for step in range(2):
-            tr.decode_step(cfg, params, cache, tokens[:, -1], plen + step,
-                           compute_dtype=torch.float32)
-
-    dec, dec_ops = moe_split(decode_two)
-    dec = {part: ms / 2 for part, ms in dec.items()}
-    del cache
 
     # teacher-forced on the kernel run's tokens, with the same engine on the
     # plain attention, every routing decision recorded
@@ -2476,34 +2518,15 @@ def serve_moe(dev, cfg, prompts):
         raise AssertionError(f"{cfg.name}: no routing decision differed, yet the logits "
                              f"differ by {float(err.max())} > {tol_lm}")
 
-    steps = timing["decode_steps"]
-    record = {
-        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
-        "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads, "d_head": cfg.head_dim,
+    record.update({
         "experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
         "d_expert": cfg.moe.d_expert, "capacity_factor": cfg.moe.capacity_factor,
-        "vocab": cfg.vocab, "params": tr.count_params(cfg),
-        "active_params": tr.active_params(cfg), "dtype": "float32",
-        "prompt_lens": [len(p) for p in prompts], "max_seq": LM_MAX_SEQ,
-        "new_tokens": LM_NEW,
-        "prefill_ms": timing["prefill_s"] * 1e3,
-        "decode_ms_per_token": timing["decode_s"] * 1e3 / steps,
-        "generate_ms": total_s * 1e3,
-        "tokens_per_s": len(prompts) * LM_NEW / total_s,
-        "decode_tokens_per_s": len(prompts) * steps / timing["decode_s"],
-        "attention_launches": launches, "attention_launches_prefill": prefill_launches,
-        "prefill_device_ms": pre, "prefill_device_ops": pre_ops,
-        "decode_device_ms_per_step": dec, "decode_device_ops_per_step": dec_ops / 2,
+        "active_params": tr.active_params(cfg),
         "teacher_forced_rerun_bit_equal": bool(torch.equal(got, logits)),
         "routing_calls": len(got_log.calls), "routing_differs": differs,
         "max_abs_err_prefill": float(err[0]), "max_abs_err_decode": float(err[1:].max()),
         "tolerance": tol_lm, "logits_within_tolerance": bool(float(err.max()) <= tol_lm),
-        "peak_gb": peak_gb, "init_s": init_s, "warmup_generate_s": warm_s,
-    }
-    for key, host_ms, dev_ms in (("prefill", record["prefill_ms"], pre),
-                                 ("decode", record["decode_ms_per_token"], dec)):
-        record[f"{key}_device_idle_ms"] = host_ms - sum(dev_ms.values())
-        record[f"{key}_device_idle_share"] = 1.0 - sum(dev_ms.values()) / host_ms
+    })
     del got_log, gold_log, plain, got, gold
 
     x, layers, hists, rows = layer_check(cfg, params, tokens, 0)
@@ -2522,7 +2545,7 @@ def serve_moe(dev, cfg, prompts):
         "moe_max_abs_err": max(r["moe_max_abs_err"] for r in layers)}
     record["kept_over_routed"] = [r["kept"] / r["routed"] for r in layers]
     del eng, logits, x
-    return record, launches, params, hists, rows
+    return record, cfg.n_layers, params, hists, rows
 
 
 def placement_check(cfg, params, hists, rows):
@@ -2609,11 +2632,120 @@ def phase_moe(dev):
         record[cfg.name] = rec
         del params, rows
         torch.cuda.empty_cache()
-        entries.append(flash_entry(dev, cfg.name, (len(LM_PROMPTS), max(LM_PROMPTS),
-                                                   cfg.n_heads, cfg.n_kv_heads,
-                                                   cfg.head_dim), launches))
+        s = max(LM_PROMPTS)
+        entries.append(flash_entry(dev, cfg.name, (len(LM_PROMPTS), s, s, cfg.n_heads,
+                                                   cfg.n_kv_heads, cfg.head_dim),
+                                   launches, per=" (one per layer's prefill)"))
     return record, entries
 
+
+
+def lm_split(fn):
+    """Device ms of ``fn`` by part (``timeline_split``): the RG-LRU's
+    ranges ``rglru.scan`` and ``rglru.conv``, then ``flash_attention``,
+    ``dense`` and ``other``."""
+    return timeline_split(fn, lambda name: name if name.startswith("rglru.") else None,
+                          LM_PARTS)
+
+
+def serve_checked(dev, cfg, prompts, max_seq, new, launches, prefill_launches,
+                  source=None):
+    """One model through ``timed_serve`` (split by ``lm_split``), then the
+    logits of a teacher-forced run against the same engine on the plain
+    attention at ``LM_TOL``; where the plain path's top two logits are
+    further apart than that, the generated tokens must agree. Returns the
+    record and the run's flash launch count."""
+    import torch
+
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.transformer_serve import ServeEngine
+
+    params, eng, toks, logits, record = timed_serve(
+        dev, cfg, prompts, max_seq, new, launches, prefill_launches, lm_split, source)
+    forced = torch.tensor([t[-new:] for t in toks], device=dev)
+    plain = ServeEngine(cfg, params, max_seq=max_seq, device=dev, backend="torch")
+    _, gold = plain.run(prompts, new, forced=forced, source_embed=source)
+    tol_lm = LM_TOL * max(1.0, float(gold.abs().max()))
+    err = (logits - gold).abs().amax(dim=(0, 2))  # per step
+    if not float(err.max()) <= tol_lm:
+        raise AssertionError(f"{cfg.name}: logits max |err| {float(err.max())} > {tol_lm}")
+    top2 = gold.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > tol_lm
+    mismatch = decided & (gold.argmax(-1) != forced)
+    if bool(mismatch.any()):
+        raise AssertionError(f"{cfg.name}: {int(mismatch.sum())} generated tokens differ "
+                             "from the plain path where its top two logits are apart")
+    record.update({
+        "kinds": sorted(set(tr.layer_kinds(cfg))),
+        "max_abs_err_prefill": float(err[0]), "max_abs_err_decode": float(err[1:].max()),
+        "tolerance": tol_lm, "tokens_decided": int(decided.sum()),
+        "tokens_total": len(prompts) * new})
+    del params, eng, plain, logits, gold
+    torch.cuda.empty_cache()
+    return record, launches
+
+
+def phase_whisper(dev):
+    """whisper-tiny at full width and depth; see the module docstring's
+    phase 11. Returns the ``whisper_serving`` record and the flash kernel's
+    ``flash_attention@whisper-tiny`` entry."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+
+    cfg = configs.get_config(WHISPER_ARCH)
+    b, frames = len(WHISPER_PROMPTS), cfg.encoder.max_source
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in WHISPER_PROMPTS]
+    source = torch.randn((b, frames, cfg.d_model),
+                         generator=torch.Generator(device=dev).manual_seed(11), device=dev)
+    n_dec, n_enc = cfg.n_layers, cfg.encoder.n_layers
+    # the encoder, the decoder's self- and cross-attention in the prefill,
+    # then the cross-attention in every decode step
+    prefill = n_enc + 2 * n_dec
+    record, launches = serve_checked(dev, cfg, prompts, WHISPER_MAX_SEQ, WHISPER_NEW,
+                                     prefill + n_dec * (WHISPER_NEW - 1), prefill, source)
+    record.update(encoder_layers=n_enc, source_frames=frames)
+    h, d = cfg.n_heads, cfg.head_dim
+    entry = flash_entry(dev, cfg.name, (b, frames, frames, h, h, d), launches,
+                        causal=False, per=f" ({n_enc} encoder, {n_dec} self- and {n_dec} "
+                        f"cross-attention in the prefill, {n_dec} cross-attention a "
+                        "decode step); the timed call is the encoder's")
+    entry["decode_cross_attention"] = flash_timing(dev, (b, 1, frames, h, h, d),
+                                                   causal=False)
+    entry["decode_cross_attention"]["per"] = (
+        f"one call at B {b}, Sq 1, Sk {frames}, H {h}, D {d}, non-causal, f32 (a decode "
+        "step's cross-attention over the encoder's frames)")
+    return record, entry
+
+
+def phase_recurrentgemma(dev):
+    """recurrentgemma-2b at full width and depth; see the module docstring's
+    phase 12. Returns the ``recurrentgemma_serving`` record and the flash
+    kernel's ``flash_attention@recurrentgemma-2b`` entry (D 256), with its
+    bf16 timing beside."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as tr
+
+    cfg = configs.get_config(RG_ARCH)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in LM_PROMPTS]
+    n_local = tr.layer_kinds(cfg).count("local")
+    record, launches = serve_checked(dev, cfg, prompts, LM_MAX_SEQ, LM_NEW, n_local,
+                                     n_local)
+    record.update(window=cfg.window, d_rnn=cfg.rnn_width,
+                  ring_slots=min(LM_MAX_SEQ, cfg.window),
+                  decode_positions=[max(LM_PROMPTS), max(LM_PROMPTS) + LM_NEW - 2])
+    s, h, hkv, d = max(LM_PROMPTS), cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    shape = (len(LM_PROMPTS), s, s, h, hkv, d)
+    entry = flash_entry(dev, cfg.name, shape, launches, window=cfg.window,
+                        per=" (one per local layer's prefill, none in decode)")
+    entry["bf16"] = flash_timing(dev, shape, True, cfg.window, torch.bfloat16)
+    return record, entry
 
 
 def flash_registers() -> dict:
@@ -2656,9 +2788,10 @@ def flash_registers() -> dict:
             name = instantiation(m.group(1))
         elif name in regs and re.search(r"\bHMMA\.", line):
             regs[name]["hmma"] += 1
-    if len(regs) != 8:
+    want = 2 * len(tfa.HEAD_DIMS)  # f32 and bf16 at every head width
+    if len(regs) != want:
         raise AssertionError(
-            f"expected 8 flash kernel instantiations, found {sorted(regs)}")
+            f"expected {want} flash kernel instantiations, found {sorted(regs)}")
     for name, r in regs.items():
         kind, d = name.split(",")
         r["shared_bytes"] = tfa.shared_bytes(
@@ -2745,6 +2878,17 @@ def main() -> int:
           f"in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     kernels.extend(moe_entries)
     moe_serving["card"] = card
+    t0 = time.perf_counter()
+    whisper, whisper_entry = phase_whisper(dev)
+    print(f"[phase 11] served {WHISPER_ARCH} in {time.perf_counter() - t0:.1f} s",
+          file=sys.stderr)
+    t0 = time.perf_counter()
+    rgemma, rgemma_entry = phase_recurrentgemma(dev)
+    print(f"[phase 12] served {RG_ARCH} in {time.perf_counter() - t0:.1f} s",
+          file=sys.stderr)
+    kernels.extend([whisper_entry, rgemma_entry])
+    whisper["card"] = card
+    rgemma["card"] = card
     for entry in kernels:
         if entry["name"] in F32_SPMM:
             entry["launches_sharded_forward_batch"] = {
@@ -2775,6 +2919,8 @@ def main() -> int:
     print(json.dumps({"mesh_executor": mesh_exec}))
     print(json.dumps({"engine_mesh": mesh_engine}))
     print(json.dumps({"moe_serving": moe_serving}))
+    print(json.dumps({"whisper_serving": whisper}))
+    print(json.dumps({"recurrentgemma_serving": rgemma}))
     # the window kernel's bound if every gathered B row came from HBM, per kdim
     print(json.dumps({"spmm_balanced_bound_all_miss_ms": all_miss}))
     # the flash kernel's bounds at the prefill shape: tensor cores (3xTF32 in

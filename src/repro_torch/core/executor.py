@@ -44,6 +44,7 @@ from repro_torch.core.schedule import Schedule
 from repro_torch.core.spmm import GATHER_ELEMS
 from repro_torch.device import resolve_device, resolve_mesh
 from repro_torch.kernels import spmm_cuda
+from repro_torch.lazyexports import lazy_exports
 from repro_torch.sharding.schedule_shard import shard_schedule, split_step_ranges
 
 GATHER = "gather"
@@ -1179,3 +1180,35 @@ def value_patched_executor(old_ex, new_sched: Schedule, slots, vals):
     if isinstance(old_ex, ScheduleExecutor):
         return ScheduleExecutor._value_patched(old_ex, new_sched, slots, vals)
     raise TypeError(f"unsupported executor type: {type(old_ex).__name__}")
+
+
+# ---------------------------------------------------------------------------
+# The caching and tuning entry points live in ``repro_torch.tuning``; the
+# JAX package's ``core.executor`` forwards them, and so does this module.
+# They resolve on first access (PEP 562), so importing this module never
+# loads the tuning package, and ``tuning.registry``, which imports the
+# executor classes above, makes no import cycle.
+# ---------------------------------------------------------------------------
+
+_TUNING_EXPORTS = {
+    "graph_fingerprint": "repro_torch.tuning.registry",
+    "mesh_fingerprint": "repro_torch.tuning.registry",
+    "device_fingerprint": "repro_torch.tuning.registry",
+    "clear_caches": "repro_torch.tuning.registry",
+    "get_schedule": "repro_torch.tuning.registry",
+    "get_spmm_schedules": "repro_torch.tuning.registry",
+    "get_executor": "repro_torch.tuning.registry",
+    "executor_for_schedule": "repro_torch.tuning.registry",
+    "release_graph": "repro_torch.tuning.registry",
+    "TunedConfig": "repro_torch.tuning.space",
+    "default_sweep": "repro_torch.tuning.space",
+    "sharded_sweep": "repro_torch.tuning.space",
+    "sharded_device_counts": "repro_torch.tuning.space",
+    "density_matched_k": "repro_torch.tuning.space",
+    "autotune": "repro_torch.tuning.runner",
+    "autotuned_executor": "repro_torch.tuning.runner",
+    "warm_tuned_executor": "repro_torch.tuning.runner",
+    "time_call": "repro_torch.tuning.runner",
+}
+
+__getattr__, __dir__ = lazy_exports(__name__, _TUNING_EXPORTS, globals())

@@ -74,6 +74,19 @@
 //   bf16 BK 64 at every D: 2 stages of K and V (256·D bytes a stage: 8 to
 //        64 KB). At D 64: Q 16, O 32, S 32 registers; ptxas gives it about
 //        160, so 3 blocks run on an SM.
+//   D 256 (recurrentgemma's local layers): one warp cannot hold a 16-row O
+//        of 256 columns beside its P·V tile (256 f32 registers a thread in
+//        f32), nor can 32-key f32 stages fit (two of 128 KB, plus Q's 64 KB).
+//        So each 16 query rows get a pair of warps (8 warps, 256 threads a
+//        block): both compute the same S over all 256 columns of Q·Kᵀ
+//        (the same instructions in the same order, so the same bits, and the
+//        same m and l), and each owns half of O's columns for P·V. The QKᵀ
+//        work is done twice: 1.5× the arithmetic of one warp a row group,
+//        bought with no exchange and no barrier inside the pair. f32: BK 16,
+//        Q in shared memory as at D 128; 2 stages of 64 KB plus Q's 64 KB =
+//        192 KB, and a thread holds O and the tile's P·V (64 registers
+//        each) as at D 128. bf16: BK 64, Q in registers (64), O 64, S 32; 2
+//        stages of 64 KB = 128 KB. One block (8 warps) runs on an SM.
 //   __launch_bounds__ asks for 1 block per SM: left to itself ptxas caps the
 //   registers lower, which measured slower in bf16 and at D 128.
 //
@@ -99,8 +112,7 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;  // the Pallas kernel's NEG_INF
-constexpr int kBQ = 64;            // query rows per block
-constexpr int kThreads = 128;      // 4 warps × 16 query rows
+constexpr int kBQ = 64;            // query rows per block: 4 row groups of 16
 
 // x rounded to tf32, 10 mantissa bits with ties away from zero: the bits
 // cvt.rna.tf32.f32 gives for x that is not NaN, with an integer add and mask
@@ -189,7 +201,9 @@ __device__ __forceinline__ void cp_async_wait() {
 template <typename T, int D>
 struct Geo {
   static constexpr bool kF32 = std::is_same<T, float>::value;
-  static constexpr int kBK = kF32 && D >= 64 ? 32 : 64;  // keys a tile
+  static constexpr int kSplit = D > 128 ? 2 : 1;          // warps a row group
+  static constexpr int kThreads = 128 * kSplit;           // 4 row groups
+  static constexpr int kBK = kF32 && D > 128 ? 16 : kF32 && D >= 64 ? 32 : 64;  // keys a tile
   static constexpr int kStages = 2;                       // tiles in the K/V ring
   static constexpr int kEPC = 16 / sizeof(T);             // elements a 16-byte chunk
   static constexpr int kR = D / kEPC;                     // chunks a row
@@ -218,18 +232,22 @@ struct Geo {
 };
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Geo<T, D>::kThreads, 1)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
                        int h, int hkv, int causal, int window, float scale) {
   using G = Geo<T, D>;
   constexpr bool kF32 = G::kF32;
   constexpr int BK = G::kBK, NB = BK / 8, ND = D / 8;
+  constexpr int kThreads = G::kThreads;
+  constexpr int NDW = ND / G::kSplit;  // 8-column blocks of O this warp owns
   extern __shared__ __align__(16) unsigned char smem[];
   float* qsm = reinterpret_cast<float*>(smem);  // [kBQ][D] Q (D 128 f32)
   T* ring = reinterpret_cast<T*>(smem + G::kQBytes);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rg = warp / G::kSplit;         // this warp's row group
+  const int c0 = warp % G::kSplit * NDW;   // its first 8-column block of O
   const int g = lane >> 2, t = lane & 3;
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
   const int b = blockIdx.y / h, hq = blockIdx.y % h;
@@ -243,12 +261,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + (long long)b * sk * kv_row + (long long)hk * D;
   T* ob = o + (long long)b * sq * q_row + (long long)hq * D;
 
-  const int wq0 = q0 + 16 * warp;  // this warp's first query row
+  const int wq0 = q0 + 16 * rg;  // this warp's first query row
   const bool warp_live = wq0 < sq;
   const int wp_first = wq0 + off, wp_last = min(wq0 + 15, sq - 1) + off;
   const int r0 = wq0 + g, r1 = r0 + 8;  // this lane's two query rows
 
-  // ---- Q: A fragments in registers, or the raw tile in shared memory (D 128 f32)
+  // ---- Q: A fragments in registers, or the raw tile in shared memory (f32, D > 64)
   constexpr int kQFrags = G::kQSmem ? 1 : (kF32 ? ND : D / 16);
   uint32_t qh[kQFrags][4], ql[kF32 ? kQFrags : 1][4];
   if constexpr (G::kQSmem) {
@@ -325,9 +343,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   };
 
   const float scale_log2 = scale * 1.4426950408889634f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, acc[ND][4];
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, acc[NDW][4];
 #pragma unroll
-  for (int nd = 0; nd < ND; ++nd)
+  for (int nd = 0; nd < NDW; ++nd)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
 
@@ -363,7 +381,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if constexpr (G::kQSmem) {
 #pragma unroll
           for (int half = 0; half < 2; ++half) {  // rows g and g+8
-            const int i = G::at(16 * warp + g + 8 * half, 8 * ks + 2 * t);
+            const int i = G::at(16 * rg + g + 8 * half, 8 * ks + 2 * t);
             const float2 x = *reinterpret_cast<const float2*>(qsm + i);
             split(x.x, ah[half], al[half]);
             split(x.y, ah[half + 2], al[half + 2]);
@@ -441,7 +459,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 2; ++i) l[i] = corr[i] * l[i] + rs[i];
 #pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
+    for (int nd = 0; nd < NDW; ++nd) {
       acc[nd][0] *= corr[0];
       acc[nd][1] *= corr[0];
       acc[nd][2] *= corr[1];
@@ -449,14 +467,18 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     // ---- O += P·V with P in registers
+    // this warp's columns of V start 8·c0 elements into each row: the
+    // swizzle permutes only the low 3 bits of a row's chunk index, and 8·c0
+    // is a whole number of 8-chunk lines, so the offset is additive and the
+    // fragment offsets below stay compile-time functions of (nd, g, t)
     if constexpr (kF32) {
-      const float* vh = st + G::kVOff;
+      const float* vh = st + G::kVOff + 8 * c0;
       const float* vl = vh + G::kTile;
       // the tile's P·V sums from zero and joins O in one rounded f32 add:
       // the tensor core's own accumulation is not round-to-nearest, and
       // summed over every tile of a 2048-key row its error grows with the
       // number of tiles
-      float pv[ND][4] = {};
+      float pv[NDW][4] = {};
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb) {
         // k index t is key 2t of the group and t+4 is key 2t+1: the
@@ -466,9 +488,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) split(pa[e], ph[e], pl[e]);
         const int ra = 8 * nb + 2 * t;
-        constexpr int NG = ND < 4 ? ND : 4;  // output blocks a group of mma
+        constexpr int NG = NDW < 4 ? NDW : 4;  // output blocks a group of mma
 #pragma unroll
-        for (int nd0 = 0; nd0 < ND; nd0 += NG) {
+        for (int nd0 = 0; nd0 < NDW; nd0 += NG) {
           uint32_t bh[NG][2], bl[NG][2];
 #pragma unroll
           for (int n = 0; n < NG; ++n) {
@@ -482,11 +504,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
 #pragma unroll
-      for (int nd = 0; nd < ND; ++nd)
+      for (int nd = 0; nd < NDW; ++nd)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[nd][e] += pv[nd][e];
     } else {
-      const T* vs = st + G::kVOff;
+      const T* vs = st + G::kVOff + 8 * c0;
       const int mat = lane >> 3;
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
@@ -496,7 +518,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
         const int row = 16 * kk + (mat & 1) * 8 + (lane & 7);
 #pragma unroll
-        for (int nd = 0; nd < ND; nd += 2) {
+        for (int nd = 0; nd < NDW; nd += 2) {
           uint32_t bv[4];
           ldmatrix_x4_trans(bv, vs + G::at(row, (nd + (mat >> 1)) * 8));
           mma_bf16(acc[nd], pa, bv[0], bv[1]);
@@ -517,9 +539,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = i == 0 ? r0 : r1;
     if (qi >= sq) continue;
 #pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
+    for (int nd = 0; nd < NDW; ++nd) {
       const float x = acc[nd][2 * i] / lt, y = acc[nd][2 * i + 1] / lt;
-      T* dst = ob + qi * q_row + 8 * nd + 2 * t;
+      T* dst = ob + qi * q_row + 8 * (c0 + nd) + 2 * t;
       if constexpr (kF32)
         *reinterpret_cast<float2*>(dst) = make_float2(x, y);
       else
@@ -538,7 +560,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int sq,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((sq + kBQ - 1) / kBQ, b * h);
-  kern<<<grid, kThreads, smem, stream>>>(
+  kern<<<grid, Geo<T, D>::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), sq, sk, h, hkv, causal, window, scale);
   return cudaGetLastError();
@@ -553,6 +575,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int b, int sq
     case 32: return launch<T, 32>(q, k, v, o, b, sq, sk, h, hkv, causal, window, scale, stream);
     case 64: return launch<T, 64>(q, k, v, o, b, sq, sk, h, hkv, causal, window, scale, stream);
     case 128: return launch<T, 128>(q, k, v, o, b, sq, sk, h, hkv, causal, window, scale, stream);
+    case 256: return launch<T, 256>(q, k, v, o, b, sq, sk, h, hkv, causal, window, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -564,6 +587,7 @@ int smem_bytes(int d) {
     case 32: return (int)Geo<T, 32>::kSmem;
     case 64: return (int)Geo<T, 64>::kSmem;
     case 128: return (int)Geo<T, 128>::kSmem;
+    case 256: return (int)Geo<T, 256>::kSmem;
     default: return -1;
   }
 }

@@ -32,7 +32,7 @@ REPLACES = "src/repro/kernels/flash_attention.py:28"
 LAUNCHES = {"flash_attention": 0}
 
 #: head widths the kernel is compiled for
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 
 #: the Pallas kernel's mask value and the floor of the softmax denominator
 NEG_INF = -1e30

@@ -6,6 +6,8 @@ float32 and cast back to the input's dtype, as the JAX package does.
 
 from __future__ import annotations
 
+from contextlib import nullcontext
+
 import torch
 import torch.nn.functional as F
 
@@ -82,3 +84,11 @@ def activation_fn(name: str):
         "relu2": _relu2,
         "tanh": torch.tanh,
     }[name]
+
+
+def profile_range(name: str):
+    """A ``torch.profiler`` range named ``name`` while a profiler records
+    (its kernels then carry the name on the device timeline); otherwise a
+    no-op that costs one flag check."""
+    return (torch.profiler.record_function(name) if torch.autograd._profiler_enabled()
+            else nullcontext())

@@ -39,7 +39,6 @@ recording; otherwise the ranges cost one flag check.
 
 from __future__ import annotations
 
-from contextlib import nullcontext
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -84,11 +83,6 @@ class Routing(NamedTuple):
     keep: torch.Tensor        # [G, Tg·K] bool: pos < capacity
     capacity: int             # rows a slot's buffer holds per group
     aux: torch.Tensor         # () f32 load-balance loss
-
-
-def _span(name: str):
-    return (torch.profiler.record_function(name) if torch.autograd._profiler_enabled()
-            else nullcontext())
 
 
 def identity_placement(dims: MoEDims, device=None) -> PlacementTables:
@@ -164,18 +158,21 @@ def route(p: dict, dims: MoEDims, x: torch.Tensor,
     n_slots = dims.n_slots or e
     g = dims.n_groups if t % max(dims.n_groups, 1) == 0 else 1
     tg = t // g
-    with _span("moe.router"):
+    with common.profile_range("moe.router"):
         xt = x.reshape(g, tg, d)
         logits = (xt @ p["router"].to(xt.dtype)).float()
         probs = torch.softmax(logits, dim=-1)                          # [G,Tg,E]
-        gate_w, expert_ids = torch.topk(probs, k, dim=-1)              # [G,Tg,K]
+        # lax.top_k puts the lower expert first on an exact tie, as a stable
+        # descending sort does; torch.topk promises no order on ties
+        ranked, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+        gate_w, expert_ids = ranked[..., :k], order[..., :k]           # [G,Tg,K]
         gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
         me = probs.mean(dim=(0, 1))
         ce = torch.zeros(e, device=x.device).index_add_(
             0, expert_ids.reshape(-1),
             torch.full((t * k,), 1.0 / (t * k), device=x.device))
         aux = e * torch.sum(me * ce)
-    with _span("moe.dispatch"):
+    with common.profile_range("moe.dispatch"):
         flat_e = expert_ids.reshape(g, tg * k)                          # [G,TKg]
         pos = rank_within(flat_e)
         if placement is None:  # the static layout: slot e hosts expert e
@@ -217,14 +214,14 @@ def moe_forward(p: dict, dims: MoEDims, x: torch.Tensor,
     g, tgk = r.slot.shape
     tg = tgk // k
     act = common.activation_fn(dims.activation)
-    with _span("moe.dispatch"):
+    with common.profile_range("moe.dispatch"):
         xt = x.reshape(g, tg, d)
         gi = torch.arange(g, device=x.device)[:, None].expand(g, tgk)
         pos_c = r.pos.clamp(max=r.capacity - 1)
         src = xt.repeat_interleave(k, dim=1) * r.keep[..., None].to(x.dtype)
         buf = torch.zeros((g, n_slots, r.capacity, d), dtype=x.dtype, device=x.device)
         buf.index_put_((gi, r.slot, pos_c), src, accumulate=True)
-    with _span("moe.experts"):
+    with common.profile_range("moe.experts"):
         w = _slot_weights(p, dims, placement, x.dtype)
         h = torch.einsum("gscd,sdf->gscf", buf, w[0])
         if dims.glu:
@@ -232,7 +229,7 @@ def moe_forward(p: dict, dims: MoEDims, x: torch.Tensor,
         else:
             h = act(h)
         out_buf = torch.einsum("gscf,sfd->gscd", h, w[1])             # [G,S,C,d]
-    with _span("moe.combine"):
+    with common.profile_range("moe.combine"):
         # the adder tree: weighted gather back to tokens
         gathered = out_buf[gi, r.slot, pos_c]                           # [G,TKg,d]
         gathered = gathered * (r.gate_w.reshape(g, tgk)[..., None].to(x.dtype)

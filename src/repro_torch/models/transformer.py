@@ -1,21 +1,32 @@
-"""Model assembly for the attention architectures, dense and MoE.
+"""Model assembly for the assigned architectures.
 
 The counterpart of ``repro.models.transformer``. A model is a stack of
 *segments*, each a repeating *unit* of layer kinds. The JAX package scans
 stacked per-segment parameters; the port unrolls the stack into a Python
-list of per-layer parameter dicts (``params["layers"]``) and loops over it.
-The layer kinds ported so far:
+list of per-layer parameter dicts (``params["layers"]``) and loops over it,
+and keeps an encoder's layers likewise in ``params["encoder"]``. The layer
+kinds ported so far:
 
   ``attn``      global causal GQA attention + dense MLP
   ``local``     windowed attention + dense MLP
   ``attn_moe``  attention + MoE FFN (AWB-balanced dispatch, ``models.moe``)
+  ``rglru``     RG-LRU recurrent block + dense MLP (``models.rglru``)
+  ``xattn``     decoder layer with cross-attention to the encoder (enc-dec)
+  ``enc``       bidirectional encoder layer + dense MLP
 
-Every other kind raises ``NotImplementedError`` naming the ROADMAP item that
-ports it. Entry points: ``model_forward`` (full sequence, forward only),
-``prefill`` (build the cache) and ``decode_step`` (one token). Caches are a
-list with one ``{"k", "v"}`` dict per layer. ``model_forward`` returns the
-sum of the MoE layers' aux losses beside the logits; decode runs the MoE
-dropless (capacity ``B·S·top_k``), as the JAX package does.
+``rwkv`` raises ``NotImplementedError`` naming the ROADMAP item that ports
+it. Entry points: ``model_forward`` (full sequence, forward only),
+``prefill`` (build the cache) and ``decode_step`` (one token). An
+encoder-decoder model reads ``batch["source_embed"]`` ([B, T, d] frame
+embeddings). Caches are a list with one dict per layer: ``{"k", "v"}`` for
+attention, plus ``{"xk", "xv"}`` (the encoder's keys and values, zero-padded
+to ``max_source``) for ``xattn``, and ``{"h", "conv"}`` in f32 for
+``rglru``. Decode attends to the whole padded ``xk``/``xv`` with no mask,
+as the JAX package does: with fewer than ``max_source`` frames the zero keys
+take part in the softmax. A recurrent layer's decode is its prefill at S 1.
+``model_forward`` returns the sum of the MoE layers' aux losses beside the
+logits; decode runs the MoE dropless (capacity ``B·S·top_k``), as the JAX
+package does.
 """
 
 from __future__ import annotations
@@ -30,6 +41,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import common
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models.attention import (AttnDims, attn_decode, attn_forward,
                                           attn_prefill, init_attn_params,
                                           init_kv_cache)
@@ -101,6 +113,10 @@ class ModelConfig:
                         self.rope, self.rope_theta, window, self.attn_chunk)
 
     @property
+    def rglru_dims(self) -> rglru_mod.RGLRUDims:
+        return rglru_mod.RGLRUDims(self.d_model, self.rnn_width)
+
+    @property
     def moe_dims(self) -> moe_mod.MoEDims:
         m = self.moe
         return moe_mod.MoEDims(self.d_model, m.d_expert, m.n_experts,
@@ -111,25 +127,22 @@ class ModelConfig:
 #: layer kinds of the JAX package not ported yet, with the ROADMAP item
 #: (queue 1, item 8, step n) that ports them
 _LATER = {
-    "xattn": "ROADMAP.md queue 1, item 8.2 (enc/xattn: whisper)",
-    "enc": "ROADMAP.md queue 1, item 8.2 (enc/xattn: whisper)",
-    "rglru": "ROADMAP.md queue 1, item 8.3 (rglru: recurrentgemma)",
     "rwkv": "ROADMAP.md queue 1, item 8.4 (rwkv6)",
 }
+_KINDS = ("attn", "local", "attn_moe", "rglru", "xattn", "enc")
 
 
 def layer_kinds(cfg: ModelConfig) -> list:
-    """The kind of every layer, in order, with each segment unrolled."""
+    """The kind of every decoder layer, in order, with each segment
+    unrolled (an encoder's layers are all ``enc``)."""
     kinds = [kind for unit, repeat in cfg.segments for _ in range(repeat)
              for kind in unit]
     for kind in kinds:
-        if kind not in ("attn", "local", "attn_moe"):
+        if kind not in _KINDS:
             if kind in _LATER:
                 raise NotImplementedError(
                     f"layer kind {kind!r} is not ported yet: {_LATER[kind]}")
             raise ValueError(f"unknown layer kind {kind}")
-    if cfg.encoder is not None:
-        raise NotImplementedError(f"encoders are not ported yet: {_LATER['enc']}")
     return kinds
 
 
@@ -143,11 +156,17 @@ def _window(cfg: ModelConfig, kind: str) -> Optional[int]:
 
 
 def _init_layer(cfg: ModelConfig, kind: str, generator, device) -> dict:
-    p = {
-        "norm1": common.norm_params(cfg.norm, cfg.d_model, device),
-        "attn": init_attn_params(generator, cfg.attn_dims(_window(cfg, kind)), device),
-        "norm2": common.norm_params(cfg.norm, cfg.d_model, device),
-    }
+    p = {"norm1": common.norm_params(cfg.norm, cfg.d_model, device)}
+    if kind == "rglru":
+        p["rec"] = rglru_mod.init_rglru_params(generator, cfg.rglru_dims, device)
+    else:
+        p["attn"] = init_attn_params(generator, cfg.attn_dims(_window(cfg, kind)),
+                                     device)
+    p["norm2"] = common.norm_params(cfg.norm, cfg.d_model, device)
+    if kind == "xattn":
+        p["xnorm"] = common.norm_params(cfg.norm, cfg.d_model, device)
+        p["xattn"] = init_attn_params(generator, cfg.attn_dims(None), device)
+        p["norm3"] = common.norm_params(cfg.norm, cfg.d_model, device)
     if kind == "attn_moe":
         p["moe"] = moe_mod.init_moe_params(generator, cfg.moe_dims, device)
     else:
@@ -172,6 +191,10 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
                                               device=device)
     params["layers"] = [_init_layer(cfg, kind, generator, device)
                         for kind in layer_kinds(cfg)]
+    if cfg.encoder is not None:
+        params["encoder"] = [_init_layer(cfg, "enc", generator, device)
+                             for _ in range(cfg.encoder.n_layers)]
+        params["enc_norm"] = common.norm_params(cfg.norm, cfg.d_model, device)
     return params
 
 
@@ -207,7 +230,7 @@ def params_from_jax(cfg: ModelConfig, np_params: dict, device=None) -> dict:
     """The port's parameters from the JAX package's parameter pytree as
     numpy arrays (or tensors, as a checkpoint restores them): each
     ``seg{i}`` leaf carries a leading ``repeat`` axis, split here into one
-    dict per layer."""
+    dict per layer, and likewise the encoder's stacked ``encoder/l0``."""
     dev = resolve_device(device)
 
     def tensor(a):
@@ -233,20 +256,27 @@ def params_from_jax(cfg: ModelConfig, np_params: dict, device=None) -> dict:
         for r in range(repeat):
             layers += [take(seg[f"l{i}"], r) for i in range(len(unit))]
     params["layers"] = layers
+    if cfg.encoder is not None:
+        enc = np_params["encoder"]["l0"]
+        params["encoder"] = [take(enc, r) for r in range(cfg.encoder.n_layers)]
+        params["enc_norm"] = {k: tensor(v) for k, v in np_params["enc_norm"].items()}
     return params
 
 
 def jax_layout(cfg: ModelConfig, params: dict) -> dict:
     """The port's parameters in the JAX package's layout, the inverse of
     ``params_from_jax``: each segment's unit layers stacked along a leading
-    ``repeat`` axis as ``seg{i}/l{j}``. Checkpoints use this layout."""
+    ``repeat`` axis as ``seg{i}/l{j}``, the encoder's as ``encoder/l0``.
+    Checkpoints use this layout."""
 
     def stack(trees):
         if isinstance(trees[0], dict):
             return {k: stack([t[k] for t in trees]) for k in trees[0]}
         return torch.stack(trees)
 
-    out = {k: v for k, v in params.items() if k != "layers"}
+    out = {k: v for k, v in params.items() if k not in ("layers", "encoder")}
+    if "encoder" in params:
+        out["encoder"] = {"l0": stack(params["encoder"])}
     layers, at = params["layers"], 0
     for si, (unit, repeat) in enumerate(cfg.segments):
         n = len(unit)
@@ -268,14 +298,53 @@ def _norm(cfg, p, x):
 
 
 def _ffn(cfg, kind, p, x, capacity_override=None) -> tuple:
-    """The layer's second residual block, dense MLP or MoE. Returns (x, the
-    MoE's aux loss or None)."""
-    h = _norm(cfg, p["norm2"], x)
+    """The layer's last residual block, dense MLP or MoE, after ``norm3``
+    in an ``xattn`` layer and ``norm2`` otherwise. Returns (x, the MoE's aux
+    loss or None)."""
+    h = _norm(cfg, p["norm3" if kind == "xattn" else "norm2"], x)
     if kind == "attn_moe":
         out, aux = moe_mod.moe_forward(p["moe"], cfg.moe_dims, h,
                                        capacity_override=capacity_override)
         return x + out, aux
     return x + mlp_mod.mlp_forward(p["mlp"], h, cfg.activation, cfg.glu), None
+
+
+def _recurrent(cfg, p, x, state) -> tuple:
+    """An ``rglru`` layer from ``state``: (x, the new state)."""
+    h, state = rglru_mod.rglru_forward(p["rec"], cfg.rglru_dims,
+                                       _norm(cfg, p["norm1"], x), state)
+    x, _ = _ffn(cfg, "rglru", p, x + h)
+    return x, state
+
+
+def _cross_kv(cfg, p, enc_out) -> tuple:
+    """The cross-attention's keys and values from the encoder output (no
+    bias, no RoPE), [B, T, Hkv, D] each."""
+    b, s_enc, _ = enc_out.shape
+    dims = cfg.attn_dims(None)
+    shape = (b, s_enc, dims.n_kv_heads, dims.d_head)
+    return ((enc_out @ p["xattn"]["wk"].to(enc_out.dtype)).reshape(shape),
+            (enc_out @ p["xattn"]["wv"].to(enc_out.dtype)).reshape(shape))
+
+
+def _cross(cfg, p, x, k, v, backend) -> torch.Tensor:
+    """x plus the cross-attention over (k, v): non-causal, q without RoPE."""
+    return x + attn_forward(p["xattn"], cfg.attn_dims(None), _norm(cfg, p["xnorm"], x),
+                            causal=False, backend=backend, cross_kv=(k, v))
+
+
+def _encode(cfg: ModelConfig, params: dict, batch: dict, dtype, backend):
+    """The encoder's output for ``batch["source_embed"]`` (bidirectional
+    attention with RoPE on frame positions), or None without an encoder."""
+    if cfg.encoder is None:
+        return None
+    x = batch["source_embed"].to(dtype)
+    dims = cfg.attn_dims(None)
+    for p in params["encoder"]:
+        x = x + attn_forward(p["attn"], dims, _norm(cfg, p["norm1"], x), causal=False,
+                             backend=backend)
+        x, _ = _ffn(cfg, "enc", p, x)
+    return _norm(cfg, params["enc_norm"], x)
 
 
 def _embed(params: dict, tokens: torch.Tensor, dtype) -> torch.Tensor:
@@ -292,13 +361,22 @@ def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
 def model_forward(cfg: ModelConfig, params: dict, batch: dict,
                   backend: Optional[str] = None,
                   compute_dtype=torch.bfloat16) -> tuple:
-    """batch: {'tokens': [B, S] int}. Returns (logits [B, S, vocab],
-    aux_loss): the sum of the MoE layers' aux losses, 0 without one."""
+    """batch: {'tokens': [B, S] int, optional 'source_embed': [B, T, d]}.
+    Returns (logits [B, S, vocab], aux_loss): the sum of the MoE layers'
+    aux losses, 0 without one."""
     x = _embed(params, batch["tokens"], compute_dtype)
+    enc_out = _encode(cfg, params, batch, compute_dtype, backend)
     aux_total = torch.zeros((), device=x.device)
     for kind, p in zip(layer_kinds(cfg), params["layers"]):
+        if kind == "rglru":
+            state = rglru_mod.init_rglru_state(cfg.rglru_dims, x.shape[0], x.device)
+            x, _ = _recurrent(cfg, p, x, state)
+            continue
         x = x + attn_forward(p["attn"], cfg.attn_dims(_window(cfg, kind)),
-                             _norm(cfg, p["norm1"], x), backend=backend)
+                             _norm(cfg, p["norm1"], x), causal=kind != "enc",
+                             backend=backend)
+        if kind == "xattn":
+            x = _cross(cfg, p, x, *_cross_kv(cfg, p, enc_out), backend)
         x, aux = _ffn(cfg, kind, p, x)
         if aux is not None:
             aux_total = aux_total + aux
@@ -310,36 +388,73 @@ def model_forward(cfg: ModelConfig, params: dict, batch: dict,
 # ---------------------------------------------------------------------------
 
 
+def _init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int, dtype,
+                      device) -> dict:
+    if kind == "rglru":
+        return rglru_mod.init_rglru_state(cfg.rglru_dims, batch, device)
+    c = init_kv_cache(cfg.attn_dims(_window(cfg, kind)), batch, max_seq, dtype, device)
+    if kind == "xattn":
+        dims = cfg.attn_dims(None)
+        shape = (batch, cfg.encoder.max_source, dims.n_kv_heads, dims.d_head)
+        c["xk"] = torch.zeros(shape, dtype=dtype, device=device)
+        c["xv"] = torch.zeros(shape, dtype=dtype, device=device)
+    return c
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
                device=None) -> list:
-    return [init_kv_cache(cfg.attn_dims(_window(cfg, kind)), batch, max_seq, dtype,
-                          device) for kind in layer_kinds(cfg)]
+    return [_init_layer_cache(cfg, kind, batch, max_seq, dtype, device)
+            for kind in layer_kinds(cfg)]
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict, max_seq: int,
             backend: Optional[str] = None, compute_dtype=torch.bfloat16) -> tuple:
-    """Run the prompt; return (logits at the last position [B, 1, vocab],
-    cache)."""
+    """Run the prompt (and the encoder over ``batch["source_embed"]``);
+    return (logits at the last position [B, 1, vocab], cache)."""
     tokens = batch["tokens"]
     x = _embed(params, tokens, compute_dtype)
+    enc_out = _encode(cfg, params, batch, compute_dtype, backend)
     cache = init_cache(cfg, tokens.shape[0], max_seq, compute_dtype, x.device)
     for kind, p, c in zip(layer_kinds(cfg), params["layers"], cache):
+        if kind == "rglru":
+            x, state = _recurrent(cfg, p, x, c)
+            c.update(state)
+            continue
         h, _ = attn_prefill(p["attn"], cfg.attn_dims(_window(cfg, kind)),
                             _norm(cfg, p["norm1"], x), c, backend)
-        x, _ = _ffn(cfg, kind, p, x + h)
+        x = x + h
+        if kind == "xattn":
+            k, v = _cross_kv(cfg, p, enc_out)
+            s_enc = k.shape[1]
+            if s_enc > c["xk"].shape[1]:
+                raise ValueError(f"{s_enc} source frames exceed max_source "
+                                 f"{c['xk'].shape[1]}")
+            c["xk"][:, :s_enc] = k  # the frames past s_enc stay zero
+            c["xv"][:, :s_enc] = v
+            x = _cross(cfg, p, x, k, v, backend)
+        x, _ = _ffn(cfg, kind, p, x)
     return _logits(cfg, params, x[:, -1:]), cache
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: list, token: torch.Tensor,
-                pos: int, compute_dtype=torch.bfloat16) -> tuple:
+                pos: int, backend: Optional[str] = None,
+                compute_dtype=torch.bfloat16) -> tuple:
     """token: [B] int; pos: the token's position. Returns (logits [B, 1, V],
-    cache), the cache written in place. Decode attention is plain tensor
-    ops (as in the JAX package), so it takes no backend. The MoE runs
-    dropless: capacity ``B·top_k`` per slot."""
+    cache), the cache written in place. Self-attention decode is plain
+    tensor ops (as in the JAX package); ``backend`` selects the
+    cross-attention over the cached encoder keys (``kernels.ops.attention``).
+    The MoE runs dropless: capacity ``B·top_k`` per slot."""
     x = _embed(params, token, compute_dtype)[:, None]
     dropless = x.shape[0] * x.shape[1] * cfg.moe.top_k if cfg.moe else None
     for kind, p, c in zip(layer_kinds(cfg), params["layers"], cache):
+        if kind == "rglru":  # a recurrent layer's decode is its prefill at S 1
+            x, state = _recurrent(cfg, p, x, c)
+            c.update(state)
+            continue
         h, _ = attn_decode(p["attn"], cfg.attn_dims(_window(cfg, kind)),
                            _norm(cfg, p["norm1"], x), c, pos)
-        x, _ = _ffn(cfg, kind, p, x + h, capacity_override=dropless)
+        x = x + h
+        if kind == "xattn":
+            x = _cross(cfg, p, x, c["xk"].to(x.dtype), c["xv"].to(x.dtype), backend)
+        x, _ = _ffn(cfg, kind, p, x, capacity_override=dropless)
     return _logits(cfg, params, x), cache

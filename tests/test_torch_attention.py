@@ -102,6 +102,48 @@ def test_flash_plain_bf16():
     assert np.abs(ref_bf.float().numpy() - np.asarray(jref_bf, np.float32)).max() < 5e-2
 
 
+# head width 256 (recurrentgemma-2b's local layers: MQA, group 10) and
+# Sq > Sk (whisper's cross-attention over the encoder's frames):
+# (b, sq, sk, h, hkv, d, causal, window)
+WIDE = [
+    (1, 40, 40, 10, 1, 256, True, None),
+    (1, 40, 40, 10, 1, 256, True, 8),
+    (1, 24, 72, 4, 1, 256, True, 24),     # Sq < Sk
+    (2, 33, 33, 2, 2, 256, False, None),
+    (1, 50, 20, 2, 2, 256, False, None),  # Sq > Sk, non-causal
+    (1, 50, 20, 6, 6, 64, False, None),   # whisper's width
+    (1, 1, 30, 6, 6, 64, False, None),    # decode's cross-attention, Sq 1
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hkv,d,causal,window", WIDE)
+def test_flash_plain_matches_pallas_wide_and_cross(b, sq, sk, h, hkv, d, causal, window):
+    arrs = _qkv(sq + sk + d, b, sq, sk, h, hkv, d)
+    pallas = np.asarray(fa.flash_attention(*_jax(arrs), causal=causal, window=window,
+                                           block_q=16, block_k=16, interpret=True))
+    plain = tfa.flash_attention(*_torch(arrs), causal=causal, window=window)
+    tol = 2e-5 * max(1.0, float(np.abs(pallas).max()))
+    np.testing.assert_allclose(plain.numpy(), pallas, atol=tol, rtol=0)
+    gold = np.asarray(jref.attention_ref(*_jax(arrs), causal=causal, window=window))
+    np.testing.assert_allclose(tops.attention(*_torch(arrs), causal=causal,
+                                              window=window).numpy(), gold, atol=tol)
+
+
+def test_causal_sq_over_sk_agrees_where_a_row_sees_a_key():
+    """Causal with Sq > Sk leaves the first Sq − Sk query rows no key: the
+    reference's oracle gives NaN there and its Pallas kernel gives mean(V)
+    or 0 by block, so no version is right; the rows that see a key agree."""
+    arrs = _qkv(11, 1, 50, 20, 4, 2, 256)
+    pallas = np.asarray(fa.flash_attention(*_jax(arrs), causal=True, block_q=16,
+                                           block_k=16, interpret=True))
+    gold = np.asarray(jref.attention_ref(*_jax(arrs), causal=True))
+    plain = tfa.flash_attention(*_torch(arrs), causal=True).numpy()
+    assert np.isnan(gold[:, :30]).all() and not np.isnan(gold[:, 30:]).any()
+    tol = 2e-5 * max(1.0, float(np.abs(gold[:, 30:]).max()))
+    np.testing.assert_allclose(plain[:, 30:], pallas[:, 30:], atol=tol, rtol=0)
+    np.testing.assert_allclose(plain[:, 30:], gold[:, 30:], atol=tol, rtol=0)
+
+
 def test_ops_attention_dispatch(monkeypatch):
     arrs = _torch(_qkv(11, 1, 32, 32, 4, 2, 16))
     calls = []

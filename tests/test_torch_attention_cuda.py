@@ -18,7 +18,7 @@ from repro_torch.models.transformer_serve import ServeEngine  # noqa: E402
 pytestmark = pytest.mark.cuda
 
 # (b, sq, sk, h, hkv, d): the JAX kernel tests' shapes, then the widths of
-# the configs (64, 128) at a length that is no multiple of any tile
+# the configs (64, 128, 256) at a length that is no multiple of any tile
 SHAPES = [
     (2, 32, 32, 4, 4, 16),
     (1, 48, 48, 8, 2, 32),
@@ -40,6 +40,23 @@ SHAPES = [
     (1, 65, 1000, 4, 2, 32),
     (1, 17, 1000, 7, 1, 128),
     (1, 129, 1000, 14, 2, 16),
+    # head width 256 (recurrentgemma-2b's local layers): MQA with group 10,
+    # ragged tiles of the 16-key f32 ring and the 64-query tiles, Sq < Sk
+    (1, 130, 130, 10, 1, 256),
+    (2, 65, 65, 4, 2, 256),
+    (1, 1, 1, 2, 1, 256),
+    (1, 17, 300, 10, 1, 256),
+    (1, 1, 129, 10, 1, 256),
+    (1, 1000, 1000, 10, 1, 256),
+]
+# Sq > Sk (cross-attention over fewer keys than queries): causal rows before
+# the first key see nothing, and no version defines them (the reference's
+# oracle gives NaN there), so those rows are left out of the comparison
+SQ_OVER_SK = [
+    (1, 200, 70, 6, 6, 64),
+    (2, 100, 33, 4, 2, 16),
+    (1, 300, 70, 4, 2, 256),
+    (1, 130, 17, 10, 1, 256),
 ]
 
 
@@ -79,7 +96,32 @@ def test_kernel_matches_plain_version(dev, shape, causal, window, dtype):
     assert float((got.float() - gold).abs().max()) <= _tol(gold, dtype)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+def _seen_rows(sq, sk, causal, window):
+    """The query rows that see at least one key."""
+    qpos = np.arange(sq) + sk - sq
+    hi = np.minimum(qpos + 1, sk) if causal else np.full(sq, sk)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(sq, np.int64)
+    return torch.from_numpy(hi > lo)
+
+
+@pytest.mark.parametrize("shape", SQ_OVER_SK, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("causal,window", [(False, None), (False, 24), (True, None),
+                                           (True, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_matches_plain_version_with_more_queries_than_keys(dev, shape, causal,
+                                                                  window, dtype):
+    b, sq, sk = shape[:3]
+    q, k, v = _qkv(dev, sum(shape) + 1, *shape, dtype=dtype)
+    got = tfa.flash_attention(q, k, v, causal=causal, window=window).float()
+    gold = tfa.flash_attention_plain(q.float(), k.float(), v.float(), causal=causal,
+                                     window=window)
+    rows = _seen_rows(sq, sk, causal, window).to(dev)
+    assert bool(rows.all()) == (not causal)
+    got, gold = got[:, rows], gold[:, rows]
+    assert float((got - gold).abs().max()) <= _tol(gold, dtype)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_is_deterministic(dev, d, dtype):
     q, k, v = _qkv(dev, 1, 2, 300, 300, 8, 2, d, dtype=dtype)
@@ -89,7 +131,7 @@ def test_kernel_is_deterministic(dev, d, dtype):
 
 
 @pytest.mark.parametrize("operand", ["q", "k"])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_nan_reaches_the_rows_that_see_it(dev, operand, d, dtype):
     """The card's canonical NaN (0x7fffffff), which a carry in the tf32
@@ -141,6 +183,34 @@ def test_serve_engine_on_the_card_matches_the_cpu(dev):
     got = ServeEngine(cfg, params, max_seq=16, device=dev).generate(prompts, 6)
     assert got == want
     assert tfa.LAUNCHES["flash_attention"] == cfg.n_layers
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "recurrentgemma-2b"])
+def test_encoder_and_hybrid_models_serve_on_the_card_as_on_the_cpu(dev, arch):
+    """Reduced whisper-tiny (encoder, self- and cross-attention through the
+    kernel, cross-attention in every decode step) and recurrentgemma-2b
+    (local layers through the kernel in the prefill): the card's tokens and
+    logits against the CPU's, teacher-forced, and the launch counts."""
+    cfg = tcfgs.get_reduced_config(arch)
+    params = ttr.init_params(cfg, torch.Generator().manual_seed(2))
+    prompts, new = [[3, 4, 5, 6], [7, 8]], 6
+    src = None
+    if cfg.encoder is not None:
+        src = torch.from_numpy(np.random.default_rng(3).standard_normal(
+            (2, 10, cfg.d_model)).astype(np.float32))
+    tfa.reset_launches()
+    toks, logits = ServeEngine(cfg, params, max_seq=16, device=dev).run(
+        prompts, new, source_embed=src)
+    kinds = ttr.layer_kinds(cfg)
+    if cfg.encoder is not None:  # encoder + self + cross in the prefill, cross a step
+        want = cfg.encoder.n_layers + 2 * len(kinds) + len(kinds) * (new - 1)
+    else:
+        want = sum(k == "local" for k in kinds)
+    assert tfa.LAUNCHES["flash_attention"] == want
+    _, gold = ServeEngine(cfg, params, max_seq=16, device="cpu").run(
+        prompts, new, forced=torch.tensor([t[-new:] for t in toks]), source_embed=src)
+    np.testing.assert_allclose(logits.cpu().numpy(), gold.numpy(),
+                               atol=2e-3 * max(1.0, float(gold.abs().max())), rtol=0)
 
 
 def test_wrapper_rejects_bad_operands(dev):

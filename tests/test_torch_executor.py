@@ -210,3 +210,50 @@ def test_executor_is_freed_with_its_last_reference(routing):
         assert ref() is None
     finally:
         gc.enable()
+
+
+# ---------------------------------------------------------------------------
+# the tuning names forwarded through ``core.executor`` and ``core`` (PEP 562)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,density,alpha", [(64, 0.05, 0.8), (200, 0.02, 1.1)])
+def test_get_executor_and_clear_caches_through_the_executor_module(n, density, alpha):
+    """``tests/test_executor.py`` drives the caches through
+    ``repro.core.executor``; the port's module forwards the same names."""
+    assert texe._TUNING_EXPORTS.keys() == jexe._TUNING_EXPORTS.keys()
+    texe.clear_caches()
+    ta, ja = _pair(n, density, alpha, seed=n)
+    b = _b(n, seed=n)
+    ex = texe.get_executor(ta, nnz_per_step=32, rows_per_window=16,
+                           routing=texe.GATHER, device="cpu")
+    want = np.asarray(jexe.get_executor(ja, nnz_per_step=32, rows_per_window=16,
+                                        routing=jexe.GATHER).spmm(jnp.asarray(b)))
+    np.testing.assert_allclose(ex.spmm(torch.from_numpy(b)).numpy(), want, atol=1e-4)
+    assert texe.get_executor(ta, nnz_per_step=32, rows_per_window=16,
+                             routing=texe.GATHER, device="cpu") is ex
+    assert texe.graph_fingerprint(ta) == jexe.graph_fingerprint(ja)
+    texe.clear_caches()
+    assert texe.get_executor(ta, nnz_per_step=32, rows_per_window=16,
+                             routing=texe.GATHER, device="cpu") is not ex
+
+
+def test_forwarded_names_resolve_to_the_tuning_package():
+    import repro_torch.core as tcore
+    from repro.core import executor as jexe_mod
+    from repro_torch.tuning import registry, runner, space
+
+    for name, target in texe._TUNING_EXPORTS.items():
+        mod = {"repro_torch.tuning.registry": registry, "repro_torch.tuning.runner": runner,
+               "repro_torch.tuning.space": space}[target]
+        assert getattr(texe, name) is getattr(mod, name)
+        assert jexe_mod._TUNING_EXPORTS[name] == target.replace("repro_torch", "repro")
+        assert name in dir(texe)
+    assert set(tcore._TUNING_EXPORTS) == {"autotune", "autotuned_executor",
+                                          "get_executor", "graph_fingerprint"}
+    assert tcore.get_executor is registry.get_executor
+    assert tcore.autotune is runner.autotune
+    with pytest.raises(AttributeError, match="has no attribute 'nope'"):
+        texe.nope  # noqa: B018
+    with pytest.raises(AttributeError, match="has no attribute 'nope'"):
+        tcore.nope  # noqa: B018

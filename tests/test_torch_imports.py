@@ -49,7 +49,8 @@ def test_port_files_exist():
               "src/repro_torch/training/checkpoint.py",
               "src/repro_torch/training/tree.py",
               "src/repro_torch/data/__init__.py", "src/repro_torch/data/tokens.py",
-              "src/repro_torch/core/moe_balance.py", "src/repro_torch/models/moe.py"):
+              "src/repro_torch/core/moe_balance.py", "src/repro_torch/models/moe.py",
+              "src/repro_torch/models/rglru.py", "src/repro_torch/lazyexports.py"):
         assert f in names
     for src in ("spmm_balanced.cu", "flash_attention.cu"):
         assert (REPO / "src/repro_torch/kernels/csrc" / src).exists()
@@ -69,11 +70,27 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
             "repro_torch.configs, repro_torch.models.transformer_serve, "
             "repro_torch.launch.serve, repro_torch.tuning, repro_torch.serving, "
             "repro_torch.core.profiler, repro_torch.training.checkpoint, "
-            "repro_torch.data, repro_torch.models.moe, repro_torch.core.moe_balance; "
+            "repro_torch.data, repro_torch.models.moe, repro_torch.core.moe_balance, "
+            "repro_torch.models.rglru, repro_torch.lazyexports; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "assert not bad, bad; "
             "from repro_torch.kernels import _build; "
             "assert _build._LIBS == {} and _build.BUILD_LOGS == {}")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_importing_core_loads_nothing_else():
+    """``repro_torch.core`` forwards its tuning names lazily: importing it
+    loads no submodule of it and no tuning package; the first access
+    does."""
+    code = ("import sys; import repro_torch.core as c; "
+            "port = sorted(m for m in sys.modules if m.startswith('repro_torch')); "
+            "assert port == ['repro_torch', 'repro_torch.core', 'repro_torch.device', "
+            "'repro_torch.lazyexports'], port; "
+            "c.get_executor; assert 'repro_torch.tuning.registry' in sys.modules")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                           text=True, timeout=120)

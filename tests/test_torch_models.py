@@ -235,9 +235,9 @@ def test_decode_matches_forward(variant):
     assert max(errs) < 2e-3, errs
 
 
-@pytest.mark.parametrize("arch", ["whisper-tiny", "recurrentgemma-2b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["rwkv6-3b"])
 def test_unported_kinds_name_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md queue 1, item 8\.[2-4]"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md queue 1, item 8\.4"):
         ttr.init_params(tcfgs.get_reduced_config(arch), torch.Generator())
 
 

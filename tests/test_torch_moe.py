@@ -313,3 +313,68 @@ def test_reduced_moe_config_keeps_the_capacity_factor():
         t, j = tcfgs.get_reduced_config(arch), jcfgs.get_reduced_config(arch)
         assert dataclasses.asdict(t.moe) == dataclasses.asdict(j.moe)
         assert tuple(t.moe_dims) == tuple(j.moe_dims)
+
+
+# ---- exact ties in the router (lax.top_k puts the lower expert first) -------
+
+def _tied_layer(seed=0, b=4, s=64):
+    """A layer whose router has three pairs of equal columns and whose
+    weights and inputs are small multiples of 1/2: logits are exact in f32
+    and bf16, so equal columns give bit-equal probabilities in both
+    packages, and rows tie at the k-th choice."""
+    dims = _dims(n_experts=8, top_k=2)
+    jp = jmoe.init_moe_params(jax.random.PRNGKey(seed), jmoe.MoEDims(*dims))
+    rng = np.random.default_rng(seed)
+    router = rng.integers(-2, 3, (dims.d_model, 8)).astype(np.float32) * 0.5
+    router[:, 1], router[:, 5], router[:, 7] = router[:, 0], router[:, 4], router[:, 2]
+    jp = dict(jp, router=jnp.asarray(router))
+    x = rng.integers(-2, 3, (b, s, dims.d_model)).astype(np.float32)
+    return dims, jp, {k: torch.from_numpy(np.array(v)) for k, v in jp.items()}, x
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_route_breaks_exact_ties_as_lax_top_k(dtype, seed):
+    dims, jp, tp, x = _tied_layer(seed)
+    r = tmoe.route(tp, dims, torch.from_numpy(x).to(getattr(torch, dtype)))
+    xt = jnp.asarray(x, getattr(jnp, dtype)).reshape(1, -1, dims.d_model)
+    logits = (xt @ jp["router"].astype(xt.dtype)).astype(jnp.float32)
+    probs = np.asarray(jax.nn.softmax(logits, axis=-1))
+    _, ids = jax.lax.top_k(jnp.asarray(probs), dims.top_k)  # the reference's lines
+    ranked = -np.sort(-probs, axis=-1)
+    assert (ranked[..., dims.top_k - 1] == ranked[..., dims.top_k]).sum() > 10  # ties bite
+    assert np.array_equal(r.expert_ids.numpy(), np.asarray(ids))
+    # on the port's own probabilities too, which differ from JAX's in last bits
+    _, own = jax.lax.top_k(jnp.asarray(r.probs.numpy()), dims.top_k)
+    assert np.array_equal(r.expert_ids.numpy(), np.asarray(own))
+
+
+def test_route_breaks_ties_in_quantised_probabilities():
+    """4,096 rows of probabilities on a grid of 1/8: most rows tie."""
+    e, k = 8, 3
+    dims = _dims(d_model=e, n_experts=e, top_k=k)
+    logits = np.random.default_rng(3).integers(0, 8, (1, 4096, e)).astype(np.float32) / 8
+    tp = {"router": torch.eye(e)}
+    r = tmoe.route(tp, dims, torch.from_numpy(logits))
+    probs = np.asarray(jax.nn.softmax(jnp.asarray(logits), axis=-1))
+    ranked = -np.sort(-r.probs.numpy(), axis=-1)
+    assert (ranked[..., k - 1] == ranked[..., k]).sum() > 1000
+    _, ids = jax.lax.top_k(jnp.asarray(r.probs.numpy()), k)
+    assert np.array_equal(r.expert_ids.numpy(), np.asarray(ids))
+    _, jids = jax.lax.top_k(jnp.asarray(probs), k)
+    assert np.array_equal(r.expert_ids.numpy(), np.asarray(jids))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bf16_moe_forward_on_ties_matches_reference(seed):
+    """The same bf16 inputs give the reference's output within bf16's own
+    rounding (2^-7 of the output's scale); a tie broken the other way puts a
+    different expert's output in a token's row, an O(1) difference."""
+    dims, jp, tp, x = _tied_layer(seed)
+    jo, ja = jmoe.moe_forward(jp, jmoe.MoEDims(*dims), jnp.asarray(x, jnp.bfloat16))
+    to, ta = tmoe.moe_forward(tp, dims, torch.from_numpy(x).to(torch.bfloat16))
+    want = np.asarray(jo.astype(jnp.float32))
+    assert to.dtype == torch.bfloat16
+    np.testing.assert_allclose(to.float().numpy(), want,
+                               atol=2 ** -7 * max(1.0, np.abs(want).max()), rtol=0)
+    np.testing.assert_allclose(float(ta), float(ja), atol=ATOL, rtol=0)

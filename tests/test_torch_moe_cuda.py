@@ -73,3 +73,23 @@ def test_reduced_moe_serves_on_the_card_as_on_the_cpu(dev, arch):
     _, want = ServeEngine(cfg, params, max_seq=32, device="cpu").run(
         prompts, 6, forced=torch.tensor([t[-6:] for t in toks]))
     np.testing.assert_allclose(logits.cpu().numpy(), want.numpy(), atol=2e-3, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_top_k_ties_break_on_the_card_as_on_the_cpu(dev, dtype):
+    """Equal router columns and small multiples of 1/2 give exact ties in
+    f32 and bf16: the card's expert choices equal the CPU's (the lower
+    expert first, as ``lax.top_k``)."""
+    dims = moe.MoEDims(d_model=16, d_ff=8, n_experts=8, top_k=2, capacity_factor=64.0)
+    p = moe.init_moe_params(torch.Generator().manual_seed(0), dims)
+    rng = np.random.default_rng(0)
+    router = rng.integers(-2, 3, (16, 8)).astype(np.float32) * 0.5
+    router[:, 1], router[:, 5], router[:, 7] = router[:, 0], router[:, 4], router[:, 2]
+    p["router"] = torch.from_numpy(router)
+    x = torch.from_numpy(rng.integers(-2, 3, (4, 64, 16)).astype(np.float32)).to(dtype)
+    want = moe.route(p, dims, x)
+    ranked = want.probs.sort(dim=-1, descending=True).values
+    assert int((ranked[..., 1] == ranked[..., 2]).sum()) > 10
+    got = moe.route(_to(p, dev), dims, x.to(dev))
+    assert torch.equal(got.expert_ids.cpu(), want.expert_ids)
+    assert torch.equal(got.slot.cpu(), want.slot)
