@@ -182,6 +182,45 @@ Builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    2048 slots. Times the flash kernel at D 256 (B 4, S 2048, H 10, Hkv 1,
    causal, window 2048) in f32 and in bf16 beside its plain version and
    ``scaled_dot_product_attention``.
+13. The same for rwkv6-3b (``rwkv`` layers: TimeMix with the chunked wkv
+   scan, ChannelMix) at full width and depth (32 layers, d_model 2560, 40
+   heads of 64, d_ff 8,960, vocab 65,536; 12.4 GB of f32 weights) with
+   phase 4's prompts, ``max_seq`` 2080 and 32 new tokens: no attention, so
+   no flash launch; device splits by the ``rwkv.wkv`` and ``rwkv.ddlerp``
+   ranges. The checks: every wkv call of a prefill on the kernel path, on
+   the inputs its layer gives it, held against the sequential scan (its
+   plain version) at the f32 tolerance, outputs and states; end to end,
+   the teacher-forced logits of the served engine and of the plain engine
+   (the sequential wkv) against a float64 run of the plain engine, prompt
+   by prompt. A prompt on which the plain engine lies within the LM
+   tolerance of the float64 run holds the served engine to the plain one
+   and to the float64 run at the LM tolerance. The f32 model is
+   ill-conditioned on long runs of pad tokens (the prompts are left-padded
+   with token 0, as in the JAX package; ``tests/test_torch_rwkv6.py``
+   shows the JAX package's own f32 forward drifting from its x64 run
+   there): a prompt on which the plain engine lies farther than the LM
+   tolerance from the float64 run holds the served engine to the float64
+   run within twice the plain engine's distance, capped at
+   ``RWKV_F64_CAP`` times the LM tolerance. Times the wkv alone at the
+   prefill's shape for each of ``WKV_CHUNKS`` beside the sequential scan,
+   each held to it.
+14. Trains qwen2-0.5b at full width and depth through
+   ``launch/steps.make_train_step``: bf16 working weights, f32 master,
+   remat on, ``TokenPipeline`` batches of 4 × 2048 (seed 0), AdamW at lr
+   1e-3 with 10 warm-up steps. Step 1 through the flash kernel
+   (``_FlashAttention``: the kernel's forward, the VJP in torch ops) is held
+   against the same step with the plain attention under autograd (loss,
+   global grad norm, every grad leaf, each within 4× the plain path's own
+   bf16 error against f32 plus 2^-9 of its scale); one ``train_step`` call
+   is split by device time under ``torch.profiler`` (``lm_step_split``).
+   Then 20 steps, with the flash launch count reset
+   before and read after each (2 a layer: the forward and remat's
+   recompute), the loss falling; the state at step 10 is checkpointed under
+   ``build/``, restored onto the card and resumed, and steps 11–20 must
+   reproduce the uninterrupted run's losses and state bit for bit. Times
+   the flash kernel at the step's shape in bf16 and its backward
+   (``attention_vjp``) in bf16 and f32 beside
+   ``scaled_dot_product_attention``'s forward and backward.
 
 Float32 matmuls and cuDNN run without TF32 (both flags are set False), so
 every float32 product is full float32. Tolerances, each scaled by
@@ -204,7 +243,9 @@ carry their launches per sharded ``forward_batch``), a
 entries ``flash_attention@<arch>``), ``{"whisper_serving": ...}`` and
 ``{"recurrentgemma_serving": ...}`` lines (phases 11 and 12; their flash
 entries ``flash_attention@whisper-tiny`` and
-``flash_attention@recurrentgemma-2b``), the card's name and power limit, and
+``flash_attention@recurrentgemma-2b``), ``{"rwkv_serving": ...}`` and
+``{"lm_training": ...}`` lines (phases 13 and 14; the latter's flash entry
+``flash_attention@lm-training``), the card's name and power limit, and
 as its last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device, or without the rest of the repository, it exits
@@ -285,7 +326,27 @@ MOE_PARTS = ("router", "dispatch", "experts", "combine", "flash_attention", "den
 WHISPER_ARCH, WHISPER_PROMPTS, WHISPER_MAX_SEQ, WHISPER_NEW = (
     "whisper-tiny", (4, 4, 4, 4), 448, 64)
 RG_ARCH = "recurrentgemma-2b"
-LM_PARTS = ("flash_attention", "dense", "rglru.scan", "rglru.conv", "other")
+LM_PARTS = ("flash_attention", "dense", "rglru.scan", "rglru.conv", "rwkv.wkv",
+            "rwkv.ddlerp", "other")
+# phase 13: rwkv6-3b with phase 4's traffic, and the wkv's chunk sizes timed
+# at its prefill shape; phase 14: qwen2-0.5b training (LM_ARCH) on batches
+# of TRAIN_LM_BATCH × TRAIN_LM_SEQ tokens (TokenPipeline, seed 0), AdamW at
+# TRAIN_LM_ADAMW for TRAIN_LM_STEPS steps, checkpointed at TRAIN_LM_SAVE_AT
+# and resumed from it; its step time is the median over the steps from
+# TRAIN_LM_TIMED_FROM on. RWKV_F64_CAP: on a prompt where f32 is
+# ill-conditioned, the served engine's distance from the float64 run may
+# reach twice the plain engine's, but never this many LM tolerances
+RWKV_ARCH, WKV_CHUNKS, RWKV_F64_CAP = "rwkv6-3b", (4, 8, 16), 5.0
+TRAIN_LM_BATCH, TRAIN_LM_SEQ, TRAIN_LM_STEPS, TRAIN_LM_SAVE_AT = 4, 2048, 20, 10
+TRAIN_LM_ADAMW = dict(lr=1e-3, warmup_steps=10, total_steps=20)
+TRAIN_LM_TIMED_FROM = 3
+# the training step's profiler ranges (launch/steps, _FlashAttention) and
+# the parts of its device split
+TRAIN_SPANS = {"train.forward": "forward", "train.cross_entropy": "cross_entropy",
+               "train.backward": "backward", "attention.vjp": "flash_backward",
+               "train.optimizer": "optimizer"}
+TRAIN_PARTS = ("forward", "flash_forward", "cross_entropy", "backward", "flash_backward",
+               "optimizer", "other")
 # the flash kernel's checks: (b, sq, sk, h, hkv, d), the JAX kernel tests'
 # shapes then the configs' head widths at a length no tile divides
 ATTN_SHAPES = [(2, 32, 32, 4, 4, 16), (1, 48, 48, 8, 2, 32), (2, 16, 64, 4, 1, 16),
@@ -2435,7 +2496,7 @@ def timed_serve(dev, cfg, prompts, max_seq, new, launches, prefill_launches, spl
     pre, pre_ops = split(lambda: tr.prefill(cfg, params, batch, max_seq,
                                             compute_dtype=torch.float32))
     got = tfa.LAUNCHES["flash_attention"]
-    if got != prefill_launches or not pre["flash_attention"] > 0.0:
+    if got != prefill_launches or (got > 0) != (pre["flash_attention"] > 0.0):
         raise AssertionError(f"{cfg.name}: the prefill launched the flash kernel {got} "
                              f"times, with {pre['flash_attention']} device ms under "
                              "its name")
@@ -2642,10 +2703,10 @@ def phase_moe(dev):
 
 def lm_split(fn):
     """Device ms of ``fn`` by part (``timeline_split``): the RG-LRU's
-    ranges ``rglru.scan`` and ``rglru.conv``, then ``flash_attention``,
-    ``dense`` and ``other``."""
-    return timeline_split(fn, lambda name: name if name.startswith("rglru.") else None,
-                          LM_PARTS)
+    ranges ``rglru.scan`` and ``rglru.conv``, RWKV-6's ``rwkv.wkv`` and
+    ``rwkv.ddlerp``, then ``flash_attention``, ``dense`` and ``other``."""
+    return timeline_split(
+        fn, lambda name: name if name.startswith(("rglru.", "rwkv.")) else None, LM_PARTS)
 
 
 def serve_checked(dev, cfg, prompts, max_seq, new, launches, prefill_launches,
@@ -2748,6 +2809,461 @@ def phase_recurrentgemma(dev):
     return record, entry
 
 
+def wkv_timing(dev, cfg):
+    """The wkv recurrence at rwkv6-3b's prefill shape (B 4, S 2048, H 40, dh
+    64, f32; seeded r, k, v, u and state, decays at the seeded model's w0 of
+    −5 with a spread of 0.5): ``wkv_chunked`` at each of ``WKV_CHUNKS``,
+    held to ``wkv_sequential`` (its plain version, the reference's step
+    loop) at 1e-5·max(1, |gold|max) on outputs and state, and timed beside
+    it. The bound is the larger of the bytes (r, k, v, log w, u and the
+    state read once, the output and state written once) at HBM rate and the
+    recurrence's 7·dh² f32 operations per token and head at the CUDA-core
+    rate."""
+    import torch
+
+    from repro_torch.models import rwkv6
+
+    b, s, h, dh = len(LM_PROMPTS), max(LM_PROMPTS), cfg.n_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    r, k, v = randn(b, s, h, dh), randn(b, s, h, dh), randn(b, s, h, dh)
+    log_w = -torch.exp(-5.0 + 0.5 * randn(b, s, h, dh))
+    u, state = randn(h, dh), randn(b, h, dh, dh)
+    args = (r, k, v, log_w, u, state)
+    gold_out, gold_state = rwkv6.wkv_sequential(*args)
+    scale = max(1.0, float(gold_out.abs().max()), float(gold_state.abs().max()))
+    plain_ms = timed_ms(lambda: rwkv6.wkv_sequential(*args), 1)
+    chunks = {}
+    for c in WKV_CHUNKS:
+        out, st = rwkv6.wkv_chunked(*args, chunk=c)
+        err = max(float((out - gold_out).abs().max()), float((st - gold_state).abs().max()))
+        if not err <= 1e-5 * scale:
+            raise AssertionError(f"wkv_chunked at chunk {c}: max |err| {err} against the "
+                                 f"sequential scan > {1e-5 * scale}")
+        del out, st
+        chunks[str(c)] = {"ms": timed_ms(lambda c=c: rwkv6.wkv_chunked(*args, chunk=c), 5),
+                          "max_abs_err": err}
+    nbytes = 4 * (5 * r.numel() + u.numel() + 2 * state.numel())
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = 7 * dh * dh * b * s * h / PEAK_F32_FLOPS * 1e3
+    return {"shape": [b, s, h, dh], "chunks": chunks, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "tolerance": 1e-5 * scale}
+
+
+def wkv_layer_check(cfg, params, tokens) -> dict:
+    """Every wkv call of one prefill on the kernel path (the chunked scan,
+    on the inputs each layer gives it) held against the sequential scan,
+    its plain version, on the same inputs: outputs and states at the f32
+    tolerance (``check``). Returns the calls and the largest errors."""
+    import torch
+
+    from repro_torch.models import rwkv6
+    from repro_torch.models import transformer as tr
+
+    errs = {"calls": 0, "out_max_abs_err": 0.0, "state_max_abs_err": 0.0}
+    chunked = rwkv6.wkv_chunked
+
+    def held(*args, **kwargs):
+        out, state = chunked(*args, **kwargs)
+        gold, gold_state = rwkv6.wkv_sequential(*args)
+        i = errs["calls"]
+        errs["out_max_abs_err"] = max(errs["out_max_abs_err"], check(
+            f"wkv call {i} output", out, gold, torch.float32))
+        errs["state_max_abs_err"] = max(errs["state_max_abs_err"], check(
+            f"wkv call {i} state", state, gold_state, torch.float32))
+        errs["calls"] += 1
+        return out, state
+
+    rwkv6.wkv_chunked = held  # rwkv_time_mix looks it up in its module
+    try:
+        tr.prefill(cfg, params, {"tokens": tokens}, LM_MAX_SEQ,
+                   compute_dtype=torch.float32)
+    finally:
+        rwkv6.wkv_chunked = chunked
+    if errs["calls"] != cfg.n_layers:
+        raise AssertionError(f"the prefill made {errs['calls']} wkv calls; expected "
+                             f"{cfg.n_layers}")
+    return errs
+
+
+def phase_rwkv(dev):
+    """rwkv6-3b at full width and depth through ``timed_serve`` (no
+    attention, so no flash launch); see the module docstring's phase 13.
+    Returns the ``rwkv_serving`` record."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import rwkv6
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.transformer_serve import ServeEngine
+    from repro_torch.training.tree import tree_map
+
+    cfg = configs.get_config(RWKV_ARCH)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in LM_PROMPTS]
+    new = LM_NEW
+    params, eng, toks, logits, record = timed_serve(dev, cfg, prompts, LM_MAX_SEQ, new, 0,
+                                                    0, lm_split)
+    for part in ("rwkv.wkv", "rwkv.ddlerp"):
+        if not record["prefill_device_ms"][part] > 0.0:
+            raise AssertionError(f"the prefill's {part} range holds no device time: "
+                                 f"{record['prefill_device_ms']}")
+    forced = torch.tensor([t[-new:] for t in toks], device=dev)
+    _, plain = ServeEngine(cfg, params, max_seq=LM_MAX_SEQ, device=dev,
+                           backend="torch").run(prompts, new, forced=forced)
+    exact = ServeEngine(cfg, tree_map(lambda t: t.double(), params), max_seq=LM_MAX_SEQ,
+                        device=dev, compute_dtype=torch.float64, backend="torch")
+    _, gold = exact.run(prompts, new, forced=forced)
+    del exact
+    tol_lm = LM_TOL * max(1.0, float(gold.abs().max()))
+    err_k = (logits.double() - gold).abs()
+    err_p = (plain.double() - gold).abs()
+    err_kp = (logits - plain).abs()
+    rows_k, rows_p, rows_kp = (e.amax(dim=(1, 2)).tolist() for e in (err_k, err_p, err_kp))
+    limits = [max(tol_lm, min(2 * p, RWKV_F64_CAP * tol_lm)) for p in rows_p]
+    for i, (k, p, kp, lim) in enumerate(zip(rows_k, rows_p, rows_kp, limits)):
+        if p <= tol_lm and not kp <= tol_lm:
+            raise AssertionError(f"{cfg.name} prompt {i}: the kernel path's logits lie {kp} "
+                                 f"from the plain path's, beyond the LM tolerance {tol_lm}")
+        if not k <= lim:
+            raise AssertionError(f"{cfg.name} prompt {i}: the kernel path's logits lie {k} "
+                                 f"from a float64 run, beyond {lim} (the LM tolerance, or "
+                                 f"twice the plain path's distance {p}, at most "
+                                 f"{RWKV_F64_CAP}× the LM tolerance)")
+    top2 = gold.topk(2, dim=-1).values
+    decided = ((top2[..., 0] - top2[..., 1])
+               > torch.tensor(limits, dtype=gold.dtype, device=dev)[:, None])
+    mismatch = decided & (gold.argmax(-1) != forced)
+    if bool(mismatch.any()):
+        raise AssertionError(f"{cfg.name}: {int(mismatch.sum())} generated tokens differ "
+                             "from the float64 run where its top two logits are apart")
+    batch = torch.zeros((len(prompts), max(LM_PROMPTS)), dtype=torch.long)
+    for i, p in enumerate(prompts):
+        batch[i, -len(p):] = torch.tensor(p)
+    wkv_calls = wkv_layer_check(cfg, params, batch.to(dev))
+    record.update({
+        "kinds": sorted(set(tr.layer_kinds(cfg))), "flash_launches": 0,
+        "wkv_chunk": rwkv6.WKV_CHUNK, "tolerance": tol_lm,
+        "max_abs_err_prefill": float(err_kp[:, 0].max()),
+        "max_abs_err_decode": float(err_kp[:, 1:].max()),
+        "kernel_vs_plain_per_row": rows_kp, "kernel_vs_float64_per_row": rows_k,
+        "plain_vs_float64_per_row": rows_p, "float64_limit_per_row": limits,
+        "rows_held_to_plain": [p <= tol_lm for p in rows_p],
+        "wkv_calls_held": wkv_calls,
+        "tokens_decided": int(decided.sum()), "tokens_total": len(prompts) * new})
+    del params, eng, logits, plain, gold
+    torch.cuda.empty_cache()
+    record["wkv"] = wkv_timing(dev, cfg)
+    return record
+
+
+def flash_backward_timing(dev, shape, dtype):
+    """``attention_vjp`` (the flash kernel's backward, torch ops) at
+    ``shape = (b, s, s, h, hkv, d)``, causal, on the kernel's output, held to
+    autograd through the plain version of the f32 inputs (1e-4·max(1,
+    |gold|max) in f32; 2^-5 of the largest gradient in bf16, whose inputs
+    round to 8 bits), and timed beside ``scaled_dot_product_attention``'s
+    forward and backward. Bound: the larger of the bytes (q, k, v, o and dO
+    read once, dq, dk and dv written once) at HBM rate and the backward's 10·D
+    operations per visible pair (S recomputed, dV, dP, dQ, dK) at the peak
+    of the inputs' type (f32 without tensor cores, bf16 with them)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention_cuda as tfa
+
+    b, sq, sk, h, hkv, d = shape
+    gen = torch.Generator(device=dev).manual_seed(14)
+    q, k, v = (torch.randn((b, n, m, d), generator=gen, device=dev)
+               for n, m in ((sq, h), (sk, hkv), (sk, hkv)))
+    dout = torch.randn((b, sq, h, d), generator=gen, device=dev)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    torch.autograd.backward(tfa.flash_attention_plain(*leaves), dout)
+    gold = [t.grad for t in leaves]
+    del leaves
+    q, k, v, dout = (t.to(dtype) for t in (q, k, v, dout))
+    out = tfa.flash_attention(q, k, v)
+    got = tfa.attention_vjp(q, k, v, out, dout)
+    errs = [float((g.float() - w).abs().max()) for g, w in zip(got, gold)]
+    limit = (1e-4 * max(1.0, max(float(w.abs().max()) for w in gold))
+             if dtype == torch.float32 else 2 ** -5 * max(float(w.abs().max()) for w in gold))
+    if not max(errs) <= limit:
+        raise AssertionError(f"attention_vjp {shape} {dtype}: max |err| {max(errs)} > "
+                             f"{limit}")
+    del got, gold
+    ms = timed_ms(lambda: tfa.attention_vjp(q, k, v, out, dout), 5)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    dt = dout.transpose(1, 2)
+
+    def sdpa_both():
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        return torch.autograd.grad(o, (qt, kt, vt), dt)
+
+    lib_ms = [timed_ms(sdpa_both, 5) for _ in range(2)]
+    pairs = visible_pairs(sq, sk, True, None) * b * h
+    nbytes = 2 * (q.numel() + dout.numel() + k.numel() + v.numel()) * q.element_size()
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = 10 * d * pairs / (PEAK_F32_FLOPS if dtype == torch.float32
+                               else PEAK_BF16_FLOPS) * 1e3
+    return {"ms": ms, "max_abs_err": max(errs), "tolerance": limit,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_forward_backward_ms": sum(lib_ms) / 2, "library_runs_ms": lib_ms}
+
+
+def lm_grad_check(cfg, params, batch):
+    """Step 1 through the flash kernel against the same step with the plain
+    attention under autograd (``backend="torch"``; both with bf16 weights
+    and compute): the loss, the global grad norm and every grad leaf, each
+    within 4× the plain path's own bf16 error (its distance from the plain
+    step in f32 on the same bf16 weights) plus half a bf16 ulp of the
+    value's scale (2^-9). Returns the record; raises on a miss."""
+    import torch
+
+    from repro_torch.kernels import flash_attention_cuda as tfa
+    from repro_torch.launch import steps
+    from repro_torch.training.optimizer import global_norm
+    from repro_torch.training.tree import flatten_with_paths, tree_map
+
+    runs = {}
+    for name, backend, dtype in (("kernel", None, torch.bfloat16),
+                                 ("plain", "torch", torch.bfloat16),
+                                 ("plain_f32", "torch", torch.float32)):
+        weights = params if dtype == torch.bfloat16 else tree_map(lambda t: t.float(), params)
+        tfa.reset_launches()
+        loss, grads = steps.value_and_grad(cfg, weights, batch, backend=backend,
+                                           compute_dtype=dtype)
+        runs[name] = (float(loss), float(global_norm(grads)),
+                      {k: g.float() for k, g in flatten_with_paths(grads).items()},
+                      tfa.LAUNCHES["flash_attention"])
+        del weights, grads
+    (lk, nk, gk, launches), (lp, npl, gp, plain_launches), (lf, nf, gf, _) = runs.values()
+    if launches != 2 * cfg.n_layers or plain_launches != 0:
+        raise AssertionError(f"step 1 launched the flash kernel {launches} times on the "
+                             f"kernel path and {plain_launches} on the plain one")
+
+    def limit(own, scale):
+        return 4 * own + 2 ** -9 * scale
+
+    checks = {"loss": (abs(lk - lp), limit(abs(lp - lf), abs(lf))),
+              "grad_norm": (abs(nk - npl), limit(abs(npl - nf), nf))}
+    worst_ratio, worst_rel, worst_leaf = 0.0, 0.0, None
+    for key in gf:
+        err = float((gk[key] - gp[key]).abs().max())
+        scale = float(gf[key].abs().max())
+        lim = limit(float((gp[key] - gf[key]).abs().max()), scale)
+        if err / lim > worst_ratio:
+            worst_ratio, worst_leaf = err / lim, key
+        worst_rel = max(worst_rel, err / max(scale, 1e-30))
+    for name, (err, lim) in checks.items():
+        if not err <= lim:
+            raise AssertionError(f"step 1 {name}: kernel path differs from the plain "
+                                 f"attention by {err} > {lim}")
+    if not worst_ratio <= 1.0:
+        raise AssertionError(f"step 1 grad leaf {worst_leaf}: the kernel path's error "
+                             f"is {worst_ratio}× its limit")
+    return {"loss_kernel": lk, "loss_plain": lp, "loss_plain_f32": lf,
+            "grad_norm_kernel": nk, "grad_norm_plain": npl, "grad_norm_plain_f32": nf,
+            "loss_abs_err": checks["loss"][0], "loss_limit": checks["loss"][1],
+            "grad_norm_abs_err": checks["grad_norm"][0],
+            "grad_norm_limit": checks["grad_norm"][1],
+            "max_leaf_err_over_limit": worst_ratio, "worst_leaf": worst_leaf,
+            "max_leaf_rel_err": worst_rel, "leaves": len(gf),
+            "flash_launches": launches}
+
+
+def lm_step_split(step, params, opt_state, batch):
+    """Device ms of one ``train_step`` call by part under ``torch.profiler``,
+    its result dropped. The step's profiler ranges name the parts
+    (``TRAIN_SPANS``): a kernel counts in the innermost range whose device
+    span holds its start, and the flash kernel as ``flash_forward`` wherever
+    it runs (the forward and remat's recompute). The autograd engine
+    launches the backward from a thread of its own, outside the calling
+    thread's ``train.backward``, so a kernel in no range that starts after
+    the cross-entropy's span and before the optimizer's counts as
+    ``backward``; any other as ``other``. Returns the split (each part's ms
+    and ``ops``); raises if a part of the step holds no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(params, opt_state, batch)
+        torch.cuda.synchronize()
+    spans, work = [], []
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            (spans if e.name in TRAIN_SPANS else work).append(e)
+
+    def edge(name, end):
+        found = [e.time_range.end if end else e.time_range.start
+                 for e in spans if e.name == name]
+        if not found:
+            raise AssertionError(f"the step's device timeline holds no {name} range")
+        return max(found) if end else min(found)
+
+    ce_end, opt_start = edge("train.cross_entropy", True), edge("train.optimizer", False)
+    split = dict.fromkeys(TRAIN_PARTS, 0.0)
+    for e in work:
+        t = e.time_range.start
+        inner = [sp for sp in spans if sp.time_range.start <= t < sp.time_range.end]
+        part = ("flash_forward" if "flash_attention_kernel" in e.name.lower()
+                else TRAIN_SPANS[max(inner, key=lambda sp: sp.time_range.start).name]
+                if inner else "backward" if ce_end <= t < opt_start else "other")
+        split[part] += e.time_range.elapsed_us() / 1e3
+    empty = [k for k in TRAIN_PARTS if k != "other" and not split[k] > 0.0]
+    if empty:
+        raise AssertionError(f"the step's split holds no device time in {empty}: {split}")
+    split["ops"] = len(work)
+    return split
+
+
+def lm_train_steps(cfg, step, state, pipe, first, last, mgr=None):
+    """Steps ``first`` + 1 to ``last`` of ``step`` on ``pipe``'s batches,
+    each synchronised and timed, with the flash launch count reset just
+    before and read just after each; ``mgr`` saves the state at
+    ``TRAIN_LM_SAVE_AT``. Returns the state, losses, step seconds, launches
+    per step and the save's seconds."""
+    import torch
+
+    from repro_torch.kernels import flash_attention_cuda as tfa
+    from repro_torch.launch.train import to_jax_layout
+
+    params, opt_state = state
+    losses, secs, launches, save_s = [], [], [], None
+    for i in range(first, last):
+        batch = pipe.next_batch()
+        torch.cuda.synchronize()
+        tfa.reset_launches()
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step(params, opt_state, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        launches.append(tfa.LAUNCHES["flash_attention"])
+        if mgr is not None and i + 1 == TRAIN_LM_SAVE_AT:
+            t0 = time.perf_counter()
+            mgr.save(i + 1, to_jax_layout(cfg, params, opt_state),
+                     extra={"pipeline": pipe.checkpoint_state()})
+            save_s = time.perf_counter() - t0
+    return (params, opt_state), losses, secs, launches, save_s
+
+
+def phase_lm_training(dev):
+    """qwen2-0.5b trained at full width and depth through
+    ``launch/steps.make_train_step``; see the module docstring's phase 14.
+    Returns the ``lm_training`` record and the kernels line's
+    ``flash_attention@lm-training`` entry."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import flash_attention_cuda as tfa
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import from_jax_layout, to_jax_layout
+    from repro_torch.models import transformer as tr
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training.checkpoint import CheckpointManager
+    from repro_torch.training.tree import flatten_with_paths, tree_map
+
+    cfg = configs.get_config(LM_ARCH)
+    b, s = TRAIN_LM_BATCH, TRAIN_LM_SEQ
+    opt_cfg = opt_mod.AdamWConfig(**TRAIN_LM_ADAMW)
+    specs = {k: torch.empty((b, s), dtype=torch.int32, device="meta")
+             for k in ("tokens", "labels")}
+    step, _ = steps.make_train_step(cfg, dev, specs, opt_cfg=opt_cfg)
+    master = tr.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    params = tree_map(lambda t: t.to(torch.bfloat16), master)
+    opt_state = opt_mod.adamw_init(master)
+    del master
+
+    first = {k: torch.as_tensor(v, device=dev)
+             for k, v in TokenPipeline(cfg.vocab, b, s, seed=0).next_batch().items()}
+    t0 = time.perf_counter()
+    grad_check = lm_grad_check(cfg, params, first)
+    grad_check["seconds"] = time.perf_counter() - t0
+    split = lm_step_split(step, params, opt_state, first)
+    del first
+    torch.cuda.empty_cache()
+
+    ckpt_dir = ROOT / "build" / "lm_training_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    mgr = CheckpointManager(ckpt_dir, keep=2)
+    pipe = TokenPipeline(cfg.vocab, b, s, seed=0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, losses, secs, launches, save_s = lm_train_steps(
+        cfg, step, (params, opt_state), pipe, 0, TRAIN_LM_STEPS, mgr)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if set(launches) != {2 * cfg.n_layers}:
+        raise AssertionError(f"flash launches per step {launches}; expected "
+                             f"{2 * cfg.n_layers} (forward and remat's recompute)")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"the loss did not fall: {losses}")
+
+    t0 = time.perf_counter()
+    saved, meta = mgr.restore(to_jax_layout(cfg, *state), device=dev)
+    resumed = from_jax_layout(cfg, saved, state, dev)
+    restore_s = time.perf_counter() - t0
+    del saved
+    pipe2 = TokenPipeline(cfg.vocab, b, s, seed=0)
+    pipe2.restore_state(meta["extra"]["pipeline"])
+    resumed, losses2, _, _, _ = lm_train_steps(cfg, step, resumed, pipe2, meta["step"],
+                                               TRAIN_LM_STEPS)
+    if losses2 != losses[meta["step"]:]:
+        raise AssertionError(f"the resumed losses {losses2} differ from the "
+                             f"uninterrupted run's {losses[meta['step']:]}")
+    for tree_a, tree_b in zip(state, resumed):
+        for key, a in flatten_with_paths(tree_a).items():
+            if not torch.equal(a, flatten_with_paths(tree_b)[key]):
+                raise AssertionError(f"the resumed state's {key} differs from the "
+                                     "uninterrupted run's")
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt_dir.rglob("*") if f.is_file())
+    del state, resumed
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    step_ms = float(np.median(secs[TRAIN_LM_TIMED_FROM - 1:])) * 1e3
+    shape = (b, s, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    entry = {"name": "flash_attention@lm-training", "route": "cuda", "source": tfa.SOURCE,
+             "replaces": tfa.REPLACES, "launches": launches[0]}
+    entry.update(flash_timing(dev, shape, dtype=torch.bfloat16))
+    entry["backward"] = {"bfloat16": flash_backward_timing(dev, shape, torch.bfloat16),
+                         "float32": flash_backward_timing(dev, shape, torch.float32)}
+    entry["per"] = (f"one call at B {b}, S {s}, H {cfg.n_heads}, Hkv {cfg.n_kv_heads}, D "
+                    f"{cfg.head_dim}, causal, bf16 (the training step's type); launches "
+                    "per training step (the forward and remat's recompute of each layer); "
+                    "backward: attention_vjp (torch ops) beside "
+                    "scaled_dot_product_attention's forward and backward")
+    n = cfg.n_layers
+    busy = sum(ms for part, ms in split.items() if part in TRAIN_PARTS)
+    record = {
+        "arch": cfg.name, "layers": n, "d_model": cfg.d_model, "heads": cfg.n_heads,
+        "kv_heads": cfg.n_kv_heads, "d_head": cfg.head_dim, "vocab": cfg.vocab,
+        "params": tr.count_params(cfg), "tied_embeddings": cfg.tie_embeddings,
+        "remat": cfg.remat, "param_dtype": "bfloat16", "master_dtype": "float32",
+        "batch": b, "seq": s, "tokens_per_step": b * s, "steps": TRAIN_LM_STEPS,
+        "adamw": TRAIN_LM_ADAMW, "step_ms_median": step_ms,
+        "step_ms_median_from_step": TRAIN_LM_TIMED_FROM,
+        "step_ms": [x * 1e3 for x in secs], "tokens_per_s": b * s / step_ms * 1e3,
+        "device_ms": split, "device_idle_ms": step_ms - busy,
+        "device_idle_share": 1.0 - busy / step_ms, "peak_gb": peak_gb,
+        "loss_step1": losses[0], "loss_last": losses[-1], "losses": losses,
+        "flash_launches_per_step": launches[0], "grad_check": grad_check,
+        "resume": {"from_step": meta["step"], "bit_equal": True, "save_s": save_s,
+                   "restore_s": restore_s, "checkpoint_bytes": ckpt_bytes,
+                   "depth": "full"}}
+    return record, entry
+
+
 def flash_registers() -> dict:
     """Registers and spill bytes (ptxas), dynamic shared bytes and SASS
     ``HMMA`` instructions of each instantiation of the flash kernel; raises
@@ -2807,6 +3323,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
+    start = time.perf_counter()
     from repro_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2889,6 +3406,17 @@ def main() -> int:
     kernels.extend([whisper_entry, rgemma_entry])
     whisper["card"] = card
     rgemma["card"] = card
+    t0 = time.perf_counter()
+    rwkv = phase_rwkv(dev)
+    rwkv["card"] = card
+    print(f"[phase 13] served {RWKV_ARCH} in {time.perf_counter() - t0:.1f} s",
+          file=sys.stderr)
+    t0 = time.perf_counter()
+    lm_training, training_entry = phase_lm_training(dev)
+    lm_training["card"] = card
+    kernels.append(training_entry)
+    print(f"[phase 14] trained {LM_ARCH} ({TRAIN_LM_STEPS} steps, resumed from step "
+          f"{TRAIN_LM_SAVE_AT}) in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     for entry in kernels:
         if entry["name"] in F32_SPMM:
             entry["launches_sharded_forward_batch"] = {
@@ -2921,12 +3449,15 @@ def main() -> int:
     print(json.dumps({"moe_serving": moe_serving}))
     print(json.dumps({"whisper_serving": whisper}))
     print(json.dumps({"recurrentgemma_serving": rgemma}))
+    print(json.dumps({"rwkv_serving": rwkv}))
+    print(json.dumps({"lm_training": lm_training}))
     # the window kernel's bound if every gathered B row came from HBM, per kdim
     print(json.dumps({"spmm_balanced_bound_all_miss_ms": all_miss}))
     # the flash kernel's bounds at the prefill shape: tensor cores (3xTF32 in
     # f32, bf16), CUDA cores (f32), the softmax's ex2 and HBM
     print(json.dumps({"flash_bounds": attn_bounds}))
     print(card)
+    print(f"[chip_smoke] all phases in {time.perf_counter() - start:.1f} s", file=sys.stderr)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,10 @@
 """Architecture registry: the 10 assigned archs as data.
 
-The counterpart of ``repro.configs`` (without ``input_specs``, the JAX
-package's ``eval_shape`` dry-run helper). ``get_config(name)`` returns the
+The counterpart of ``repro.configs``. ``get_config(name)`` returns the
 published configuration; ``get_reduced_config(name)`` shrinks every
-dimension for CPU tests while keeping the segment structure.
+dimension for CPU tests while keeping the segment structure;
+``input_specs(cfg, shape)`` gives meta-device tensors standing in for every
+model input of a shape cell (shapes and dtypes, nothing allocated).
 """
 
 from __future__ import annotations
@@ -12,7 +13,10 @@ import dataclasses
 import importlib
 from typing import Dict
 
-from repro_torch.models.transformer import EncoderConfig, ModelConfig, MoEConfig
+import torch
+
+from repro_torch.models.transformer import (EncoderConfig, ModelConfig, MoEConfig,
+                                            init_cache)
 
 _ARCH_MODULES: Dict[str, str] = {
     "rwkv6-3b": "rwkv6_3b",
@@ -73,3 +77,30 @@ def get_reduced_config(name: str) -> ModelConfig:
         d_head=16, d_ff=96, vocab=128, segments=segments, moe=moe,
         encoder=enc, window=(8 if cfg.window else None),
         d_rnn=(64 if cfg.d_rnn else 0), remat=False)
+
+
+def input_specs(cfg: ModelConfig, shape: str) -> dict:
+    """Meta-device stand-ins for every input of (arch × shape): int32
+    ``tokens`` and ``labels`` for training, ``tokens`` for prefill, and for
+    decode one ``token`` a sequence, a scalar ``pos`` and the bf16 ``cache``
+    of ``init_cache`` (one dict per layer); an encoder model's bf16
+    ``source_embed`` beside training and prefill inputs."""
+    seq, batch, kind = SHAPES[shape]
+
+    def spec(*dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    specs: dict = {}
+    if kind == "train":
+        specs["tokens"] = spec(batch, seq)
+        specs["labels"] = spec(batch, seq)
+    elif kind == "prefill":
+        specs["tokens"] = spec(batch, seq)
+    else:  # decode: one new token against a seq-length cache
+        specs["token"] = spec(batch)
+        specs["pos"] = spec()
+        specs["cache"] = init_cache(cfg, batch, seq, torch.bfloat16, device="meta")
+    if cfg.encoder is not None and kind != "decode":
+        specs["source_embed"] = spec(batch, cfg.encoder.max_source, cfg.d_model,
+                                     dtype=torch.bfloat16)
+    return specs

@@ -11,10 +11,19 @@ The wrapper takes the kernel's plain PyTorch version
 (``flash_attention_plain``) only for tensors on the CPU. CUDA tensors launch
 the kernel or raise. ``LAUNCHES`` counts launches, so a run can show that
 its path went through the kernel.
+
+Gradients: when grad is enabled and an input requires it, the call goes
+through ``_FlashAttention``, a ``torch.autograd.Function`` whose forward is
+the same launch (the plain version on the CPU) and whose backward is the
+attention's VJP in torch ops (``attention_vjp``): what ``jax.grad`` of the
+JAX package's ``attention_ref`` computes. The JAX package defines no
+backward for its flash kernel, so the port writes no backward kernel.
+Without grad the wrapper launches the kernel directly, as serving does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -82,13 +91,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float | None = None) -> torch.Tensor:
     """Attention ``[B, Sq, H, D]`` in q's dtype. Tensors on the CPU run the
     plain version; CUDA tensors (contiguous, 16-byte aligned) run the
-    kernel.
+    kernel. Differentiable: with grad enabled and an input that requires
+    it, through ``_FlashAttention``.
 
     A NaN in q or k gives NaN in every output row that sees it, as the plain
     version does. A NaN in v reaches the rows of each tile of keys that the
     kernel visits; the plain version, which also multiplies the masked
     keys' zero weights, spreads it to every row of the head."""
     _check(q, k, v, window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, window, scale)
+    return _forward(q, k, v, causal, window, scale)
+
+
+def _forward(q, k, v, causal, window, scale) -> torch.Tensor:
+    """The kernel's launch, or the plain version for tensors on the CPU."""
     devices = {t.device for t in (q, k, v)}
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -128,6 +145,70 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+class _FlashAttention(torch.autograd.Function):
+    """The flash kernel's forward (``_forward``) with the attention's VJP in
+    torch ops as its backward, under the profiler range ``attention.vjp``
+    while a profiler records."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        out = _forward(q, k, v, causal, window, scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.mask = (causal, window, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        with (torch.profiler.record_function("attention.vjp")
+              if torch.autograd._profiler_enabled() else contextlib.nullcontext()):
+            grads = attention_vjp(q, k, v, out, dout, *ctx.mask)
+        return (*grads, None, None, None)
+
+
+def _mask(sq: int, sk: int, causal: bool, window, device) -> torch.Tensor:
+    """``[Sq, Sk]``: the keys each query sees, queries aligned at Sk − Sq."""
+    qpos = torch.arange(sq, device=device)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def attention_vjp(q, k, v, out, dout, causal=True, window=None, scale=None) -> tuple:
+    """(dq, dk, dv) of the attention ``out`` = softmax(scale·QKᵀ, masked)·V
+    for the output gradient ``dout``, in f32, cast to the inputs' dtypes:
+    S recomputed with the kernel's mask (``NEG_INF``), P = softmax(S),
+    dV = PᵀdO, dS = P∘(dO·Vᵀ − rowsum(dO∘O)), dQ = dS·K·scale,
+    dK = dSᵀ·Q·scale, dK and dV summed over each GQA group. A row that sees
+    no key (causal, Sq > Sk) has the uniform P of the forward's mean(V)."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    groups = h // hkv
+    if scale is None:
+        scale = d ** -0.5
+    qf, do = q.float(), dout.float()
+    kf = k.float().repeat_interleave(groups, dim=2)
+    vf = v.float().repeat_interleave(groups, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    s = torch.where(_mask(sq, sk, causal, window, q.device), s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    del s
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    ds = torch.einsum("bqhd,bkhd->bhqk", do, vf)
+    rowsum = (do * out.float()).sum(-1).transpose(1, 2)[..., None]  # [B, H, Sq, 1]
+    ds.sub_(rowsum).mul_(p)
+    del p
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dk = dk.reshape(b, sk, hkv, groups, d).sum(3)
+    dv = dv.reshape(b, sk, hkv, groups, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           causal: bool = True, window: int | None = None,
                           scale: float | None = None) -> torch.Tensor:
@@ -142,14 +223,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kf = k.float().repeat_interleave(h // hkv, dim=2)
     vf = v.float().repeat_interleave(h // hkv, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * scale
-    qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
-    kpos = torch.arange(sk, device=q.device)[None, :]
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos
-    if window is not None:
-        mask &= kpos > qpos - window
-    s = torch.where(mask, s, NEG_INF)
+    s = torch.where(_mask(sq, sk, causal, window, q.device), s, NEG_INF)
     p = torch.exp(s - s.amax(-1, keepdim=True))
     l = torch.clamp(p.sum(-1, keepdim=True), min=L_FLOOR)
     out = torch.einsum("bhqk,bkhd->bhqd", p, vf) / l

@@ -1,7 +1,8 @@
 """Shared model primitives: norms, RoPE, initializers.
 
 The counterpart of ``repro.models.common``. Norms and RoPE compute in
-float32 and cast back to the input's dtype, as the JAX package does.
+float32 and cast back to the input's dtype, as the JAX package does (norms
+in float64 for float64 inputs, a reference run).
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch.nn.functional as F
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     dtype = x.dtype
-    x = x.float()
+    x = x.to(torch.promote_types(dtype, torch.float32))
     x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
     return (x * weight).to(dtype)
 
@@ -22,7 +23,7 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.T
 def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-5) -> torch.Tensor:
     dtype = x.dtype
-    x = x.float()
+    x = x.to(torch.promote_types(dtype, torch.float32))
     mu = x.mean(dim=-1, keepdim=True)
     var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
     x = (x - mu) * torch.rsqrt(var + eps)

@@ -80,18 +80,36 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y + b.to(x.dtype), new_state
 
 
+def _replace(x: torch.Tensor, start: int, stop: int, value: torch.Tensor,
+             in_place: bool) -> torch.Tensor:
+    """x with positions ``start:stop`` along S set to ``value``: written into
+    x when ``in_place``, else a new tensor (autograd cannot differentiate a
+    tensor written after use)."""
+    if in_place:
+        x[:, start:stop] = value
+        return x
+    return torch.cat([x[:, :start], value, x[:, stop:]], 1)
+
+
 def _lru_scan(a_t: torch.Tensor, gated: torch.Tensor, h0: torch.Tensor) -> tuple:
     """h_t = a_t h_{t-1} + sqrt(1 - a_t²) gated_t over S (f32, [B, S, dr]),
-    as a Hillis–Steele scan of the pairs (a_t, b_t). Returns (hs, h_last)."""
+    as a Hillis–Steele scan of the pairs (a_t, b_t). Returns (hs, h_last).
+    Without grad (serving) each round writes its buffers in place, which
+    moves fewer bytes; with grad (training) each round makes new ones, the
+    same sums in the same order."""
+    in_place = not (torch.is_grad_enabled()
+                    and any(t.requires_grad for t in (a_t, gated, h0)))
     b = torch.sqrt(torch.clamp(1.0 - a_t * a_t, min=0.0)) * gated
-    b[:, 0] += a_t[:, 0] * h0  # step 1 carries the state in
-    a = a_t.clone()
+    # step 1 carries the state in
+    b = _replace(b, 0, 1, torch.addcmul(b[:, :1], a_t[:, :1], h0[:, None]), in_place)
+    a = a_t.clone() if in_place else a_t
     s, shift = a.shape[1], 1
     while shift < s:
         # position t composes its span with the one ending at t - shift
-        b[:, shift:] += a[:, shift:] * b[:, :-shift]
+        b = _replace(b, shift, s, torch.addcmul(b[:, shift:], a[:, shift:], b[:, :-shift]),
+                     in_place)
         if 2 * shift < s:  # the last round's products are never read
-            a[:, shift:] = a[:, shift:] * a[:, :-shift]
+            a = _replace(a, shift, s, a[:, shift:] * a[:, :-shift], in_place)
         shift *= 2
     return b, b[:, -1].clone()  # not a view that keeps all of b alive
 

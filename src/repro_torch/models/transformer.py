@@ -5,25 +5,31 @@ The counterpart of ``repro.models.transformer``. A model is a stack of
 stacked per-segment parameters; the port unrolls the stack into a Python
 list of per-layer parameter dicts (``params["layers"]``) and loops over it,
 and keeps an encoder's layers likewise in ``params["encoder"]``. The layer
-kinds ported so far:
+kinds:
 
   ``attn``      global causal GQA attention + dense MLP
   ``local``     windowed attention + dense MLP
   ``attn_moe``  attention + MoE FFN (AWB-balanced dispatch, ``models.moe``)
+  ``rwkv``      RWKV-6 TimeMix + ChannelMix, attention-free (``models.rwkv6``)
   ``rglru``     RG-LRU recurrent block + dense MLP (``models.rglru``)
   ``xattn``     decoder layer with cross-attention to the encoder (enc-dec)
   ``enc``       bidirectional encoder layer + dense MLP
 
-``rwkv`` raises ``NotImplementedError`` naming the ROADMAP item that ports
-it. Entry points: ``model_forward`` (full sequence, forward only),
-``prefill`` (build the cache) and ``decode_step`` (one token). An
+Entry points: ``model_forward`` (full sequence; training differentiates
+it), ``prefill`` (build the cache) and ``decode_step`` (one token). With
+``cfg.remat`` and grad enabled, ``model_forward`` checkpoints each decoder
+layer (``torch.utils.checkpoint``), as the JAX package checkpoints each
+scanned unit: the backward recomputes the layer's forward. An
 encoder-decoder model reads ``batch["source_embed"]`` ([B, T, d] frame
 embeddings). Caches are a list with one dict per layer: ``{"k", "v"}`` for
 attention, plus ``{"xk", "xv"}`` (the encoder's keys and values, zero-padded
-to ``max_source``) for ``xattn``, and ``{"h", "conv"}`` in f32 for
-``rglru``. Decode attends to the whole padded ``xk``/``xv`` with no mask,
-as the JAX package does: with fewer than ``max_source`` frames the zero keys
-take part in the softmax. A recurrent layer's decode is its prefill at S 1.
+to ``max_source``) for ``xattn``, ``{"h", "conv"}`` in f32 for ``rglru`` and
+``{"tm_x", "cm_x", "wkv"}`` in f32 for ``rwkv``. Decode attends to the whole
+padded ``xk``/``xv`` with no mask, as the JAX package does: with fewer than
+``max_source`` frames the zero keys take part in the softmax. A recurrent
+layer's decode is its prefill at S 1. ``backend="torch"`` runs every
+kernel's plain version: the plain attention, and the sequential wkv
+(``rwkv6.wkv_sequential``) in place of the chunked scan.
 ``model_forward`` returns the sum of the MoE layers' aux losses beside the
 logits; decode runs the MoE dropless (capacity ``B·S·top_k``), as the JAX
 package does.
@@ -36,12 +42,14 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import common
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.attention import (AttnDims, attn_decode, attn_forward,
                                           attn_prefill, init_attn_params,
                                           init_kv_cache)
@@ -113,6 +121,10 @@ class ModelConfig:
                         self.rope, self.rope_theta, window, self.attn_chunk)
 
     @property
+    def rwkv_dims(self) -> rwkv_mod.RWKVDims:
+        return rwkv_mod.RWKVDims(self.d_model, self.n_heads, self.head_dim, self.d_ff)
+
+    @property
     def rglru_dims(self) -> rglru_mod.RGLRUDims:
         return rglru_mod.RGLRUDims(self.d_model, self.rnn_width)
 
@@ -124,12 +136,7 @@ class ModelConfig:
                                self.glu, m.n_slots, self.moe_groups)
 
 
-#: layer kinds of the JAX package not ported yet, with the ROADMAP item
-#: (queue 1, item 8, step n) that ports them
-_LATER = {
-    "rwkv": "ROADMAP.md queue 1, item 8.4 (rwkv6)",
-}
-_KINDS = ("attn", "local", "attn_moe", "rglru", "xattn", "enc")
+_KINDS = ("attn", "local", "attn_moe", "rwkv", "rglru", "xattn", "enc")
 
 
 def layer_kinds(cfg: ModelConfig) -> list:
@@ -139,9 +146,6 @@ def layer_kinds(cfg: ModelConfig) -> list:
              for kind in unit]
     for kind in kinds:
         if kind not in _KINDS:
-            if kind in _LATER:
-                raise NotImplementedError(
-                    f"layer kind {kind!r} is not ported yet: {_LATER[kind]}")
             raise ValueError(f"unknown layer kind {kind}")
     return kinds
 
@@ -157,6 +161,10 @@ def _window(cfg: ModelConfig, kind: str) -> Optional[int]:
 
 def _init_layer(cfg: ModelConfig, kind: str, generator, device) -> dict:
     p = {"norm1": common.norm_params(cfg.norm, cfg.d_model, device)}
+    if kind == "rwkv":  # TimeMix and ChannelMix, no MLP
+        p["rwkv"] = rwkv_mod.init_rwkv_params(generator, cfg.rwkv_dims, device)
+        p["norm2"] = common.norm_params(cfg.norm, cfg.d_model, device)
+        return p
     if kind == "rglru":
         p["rec"] = rglru_mod.init_rglru_params(generator, cfg.rglru_dims, device)
     else:
@@ -198,6 +206,12 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
     return params
 
 
+def param_specs(cfg: ModelConfig) -> dict:
+    """The parameters as meta-device tensors: their shapes and dtypes,
+    with nothing allocated (the JAX package's ``eval_shape`` specs)."""
+    return init_params(cfg, None, device="meta")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for value in tree.values():
@@ -210,7 +224,7 @@ def _leaves(tree):
 
 
 def count_params(cfg: ModelConfig) -> int:
-    return sum(t.numel() for t in _leaves(init_params(cfg, None, device="meta")))
+    return sum(t.numel() for t in _leaves(param_specs(cfg)))
 
 
 def active_params(cfg: ModelConfig) -> int:
@@ -317,6 +331,23 @@ def _recurrent(cfg, p, x, state) -> tuple:
     return x, state
 
 
+def _rwkv(cfg, p, x, state, backend) -> tuple:
+    """An ``rwkv`` layer from ``state`` ({tm_x, cm_x, wkv}): (x, the new
+    state in f32 — float64 in a float64 run — as copies that keep no
+    activation alive)."""
+    dims = cfg.rwkv_dims
+    wide = torch.promote_types(x.dtype, torch.float32)
+    chunk = None if backend == "torch" else rwkv_mod.WKV_CHUNK
+    h, tm_x, wkv = rwkv_mod.rwkv_time_mix(p["rwkv"], dims, _norm(cfg, p["norm1"], x),
+                                          state["tm_x"].to(x.dtype), state["wkv"],
+                                          chunk)
+    x = x + h
+    h, cm_x = rwkv_mod.rwkv_channel_mix(p["rwkv"], _norm(cfg, p["norm2"], x),
+                                        state["cm_x"].to(x.dtype))
+    return x + h, {"tm_x": tm_x.to(wide, copy=True), "cm_x": cm_x.to(wide, copy=True),
+                   "wkv": wkv}
+
+
 def _cross_kv(cfg, p, enc_out) -> tuple:
     """The cross-attention's keys and values from the encoder output (no
     bias, no RoPE), [B, T, Hkv, D] each."""
@@ -358,6 +389,24 @@ def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     return x @ head.to(x.dtype)
 
 
+def _layer(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, enc_out,
+           backend) -> tuple:
+    """One decoder layer of ``model_forward``, a recurrent one from a zero
+    state: (x, the MoE's aux loss or None)."""
+    if kind == "rglru":
+        state = rglru_mod.init_rglru_state(cfg.rglru_dims, x.shape[0], x.device)
+        return _recurrent(cfg, p, x, state)[0], None
+    if kind == "rwkv":
+        state = rwkv_mod.init_rwkv_state(cfg.rwkv_dims, x.shape[0], x.device)
+        return _rwkv(cfg, p, x, state, backend)[0], None
+    x = x + attn_forward(p["attn"], cfg.attn_dims(_window(cfg, kind)),
+                         _norm(cfg, p["norm1"], x), causal=kind != "enc",
+                         backend=backend)
+    if kind == "xattn":
+        x = _cross(cfg, p, x, *_cross_kv(cfg, p, enc_out), backend)
+    return _ffn(cfg, kind, p, x)
+
+
 def model_forward(cfg: ModelConfig, params: dict, batch: dict,
                   backend: Optional[str] = None,
                   compute_dtype=torch.bfloat16) -> tuple:
@@ -367,17 +416,13 @@ def model_forward(cfg: ModelConfig, params: dict, batch: dict,
     x = _embed(params, batch["tokens"], compute_dtype)
     enc_out = _encode(cfg, params, batch, compute_dtype, backend)
     aux_total = torch.zeros((), device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for kind, p in zip(layer_kinds(cfg), params["layers"]):
-        if kind == "rglru":
-            state = rglru_mod.init_rglru_state(cfg.rglru_dims, x.shape[0], x.device)
-            x, _ = _recurrent(cfg, p, x, state)
-            continue
-        x = x + attn_forward(p["attn"], cfg.attn_dims(_window(cfg, kind)),
-                             _norm(cfg, p["norm1"], x), causal=kind != "enc",
-                             backend=backend)
-        if kind == "xattn":
-            x = _cross(cfg, p, x, *_cross_kv(cfg, p, enc_out), backend)
-        x, aux = _ffn(cfg, kind, p, x)
+        if remat:
+            x, aux = checkpoint(_layer, cfg, kind, p, x, enc_out, backend,
+                                use_reentrant=False)
+        else:
+            x, aux = _layer(cfg, kind, p, x, enc_out, backend)
         if aux is not None:
             aux_total = aux_total + aux
     return _logits(cfg, params, x), aux_total
@@ -392,6 +437,8 @@ def _init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int, dty
                       device) -> dict:
     if kind == "rglru":
         return rglru_mod.init_rglru_state(cfg.rglru_dims, batch, device)
+    if kind == "rwkv":
+        return rwkv_mod.init_rwkv_state(cfg.rwkv_dims, batch, device)
     c = init_kv_cache(cfg.attn_dims(_window(cfg, kind)), batch, max_seq, dtype, device)
     if kind == "xattn":
         dims = cfg.attn_dims(None)
@@ -420,6 +467,10 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, max_seq: int,
             x, state = _recurrent(cfg, p, x, c)
             c.update(state)
             continue
+        if kind == "rwkv":
+            x, state = _rwkv(cfg, p, x, c, backend)
+            c.update(state)
+            continue
         h, _ = attn_prefill(p["attn"], cfg.attn_dims(_window(cfg, kind)),
                             _norm(cfg, p["norm1"], x), c, backend)
         x = x + h
@@ -442,13 +493,19 @@ def decode_step(cfg: ModelConfig, params: dict, cache: list, token: torch.Tensor
     """token: [B] int; pos: the token's position. Returns (logits [B, 1, V],
     cache), the cache written in place. Self-attention decode is plain
     tensor ops (as in the JAX package); ``backend`` selects the
-    cross-attention over the cached encoder keys (``kernels.ops.attention``).
-    The MoE runs dropless: capacity ``B·top_k`` per slot."""
+    cross-attention over the cached encoder keys (``kernels.ops.attention``)
+    and the wkv's version. The MoE runs dropless: capacity ``B·top_k`` per
+    slot."""
     x = _embed(params, token, compute_dtype)[:, None]
     dropless = x.shape[0] * x.shape[1] * cfg.moe.top_k if cfg.moe else None
     for kind, p, c in zip(layer_kinds(cfg), params["layers"], cache):
-        if kind == "rglru":  # a recurrent layer's decode is its prefill at S 1
+        # a recurrent layer's decode is its prefill at S 1
+        if kind == "rglru":
             x, state = _recurrent(cfg, p, x, c)
+            c.update(state)
+            continue
+        if kind == "rwkv":
+            x, state = _rwkv(cfg, p, x, c, backend)
             c.update(state)
             continue
         h, _ = attn_decode(p["attn"], cfg.attn_dims(_window(cfg, kind)),

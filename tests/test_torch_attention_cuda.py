@@ -235,3 +235,64 @@ def test_wrapper_rejects_bad_operands(dev):
         tfa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
     with pytest.raises(ValueError, match="cuda"):
         tops.attention(q.cpu(), k.cpu(), v.cpu(), backend="cuda")
+
+
+@pytest.mark.parametrize("shape", [(2, 100, 100, 4, 2, 64), (1, 65, 130, 14, 2, 64),
+                                   (1, 130, 130, 10, 1, 256), (1, 70, 33, 4, 2, 16)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None), (True, 24)])
+def test_grads_through_the_kernel_match_the_plain_version(dev, shape, causal, window):
+    """``_FlashAttention`` (the kernel's forward, the VJP in torch ops)
+    against autograd through the plain version, in f32: the forward at the
+    kernel tolerance, the grads at 1e-4·max (the VJP reads the kernel's
+    output). Causal rows that see no key (Sq > Sk) carry no output
+    gradient."""
+    q, k, v = _qkv(dev, sum(shape), *shape)
+    dout = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(1),
+                       device=dev)
+    b, sq, sk = shape[:3]
+    if causal:
+        dout[:, :max(0, sq - sk)] = 0.0
+    grads = []
+    for fn in (tfa.flash_attention, tfa.flash_attention_plain):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = tfa.LAUNCHES["flash_attention"]
+        out = fn(*leaves, causal=causal, window=window)
+        launched = tfa.LAUNCHES["flash_attention"] - before
+        out.backward(dout)
+        grads.append((out.detach(), *(t.grad for t in leaves)))
+        assert launched == (1 if fn is tfa.flash_attention else 0)
+    keep = _seen_rows(sq, sk, causal, window)
+    (out, *got), (gold_out, *want) = grads
+    assert float((out[:, keep] - gold_out[:, keep]).abs().max()) <= _tol(gold_out,
+                                                                         torch.float32)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-4 * max(1.0, float(w.abs().max()))
+
+
+def test_a_remat_train_step_launches_twice_a_layer(dev):
+    """Reduced qwen2-0.5b with ``remat``: the flash forward runs once in the
+    forward and once in the backward's recompute of each layer; the loss
+    and grads equal the plain attention's under autograd within bf16's
+    reach."""
+    import dataclasses
+
+    from repro_torch.launch import steps
+
+    cfg = dataclasses.replace(tcfgs.get_reduced_config("qwen2-0.5b"), remat=True)
+    params = ttr.init_params(cfg, torch.Generator(device=dev).manual_seed(3))
+    toks = torch.randint(0, cfg.vocab, (2, 33), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(4))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    tfa.reset_launches()
+    loss, grads = steps.value_and_grad(cfg, params, batch, compute_dtype=torch.float32)
+    assert tfa.LAUNCHES["flash_attention"] == 2 * cfg.n_layers
+    gold, gold_grads = steps.value_and_grad(cfg, params, batch, backend="torch",
+                                            compute_dtype=torch.float32)
+    assert tfa.LAUNCHES["flash_attention"] == 2 * cfg.n_layers
+    assert abs(float(loss) - float(gold)) <= 1e-5 * abs(float(gold))
+    from repro_torch.training.tree import flatten_with_paths
+
+    for key, w in flatten_with_paths(gold_grads).items():
+        g = flatten_with_paths(grads)[key]
+        assert float((g - w).abs().max()) <= 1e-3 * max(1e-6, float(w.abs().max())), key

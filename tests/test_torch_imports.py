@@ -50,7 +50,9 @@ def test_port_files_exist():
               "src/repro_torch/training/tree.py",
               "src/repro_torch/data/__init__.py", "src/repro_torch/data/tokens.py",
               "src/repro_torch/core/moe_balance.py", "src/repro_torch/models/moe.py",
-              "src/repro_torch/models/rglru.py", "src/repro_torch/lazyexports.py"):
+              "src/repro_torch/models/rglru.py", "src/repro_torch/lazyexports.py",
+              "src/repro_torch/models/rwkv6.py", "src/repro_torch/launch/steps.py",
+              "src/repro_torch/launch/train.py"):
         assert f in names
     for src in ("spmm_balanced.cu", "flash_attention.cu"):
         assert (REPO / "src/repro_torch/kernels/csrc" / src).exists()
@@ -71,7 +73,9 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
             "repro_torch.launch.serve, repro_torch.tuning, repro_torch.serving, "
             "repro_torch.core.profiler, repro_torch.training.checkpoint, "
             "repro_torch.data, repro_torch.models.moe, repro_torch.core.moe_balance, "
-            "repro_torch.models.rglru, repro_torch.lazyexports; "
+            "repro_torch.models.rglru, repro_torch.lazyexports, "
+            "repro_torch.models.rwkv6, repro_torch.launch.steps, "
+            "repro_torch.launch.train; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "assert not bad, bad; "
             "from repro_torch.kernels import _build; "
@@ -133,3 +137,12 @@ def test_entry_points_default_to_the_card(monkeypatch):
         ServeEngine(cfg, params)
     with pytest.raises(RuntimeError):
         serve.main(["--reduced"])
+
+    from repro_torch.launch import steps, train
+
+    with pytest.raises(RuntimeError):
+        train.main(["--reduced", "--steps", "1"])
+    for factory in (steps.make_train_step, steps.make_prefill_step,
+                    steps.make_decode_step):
+        with pytest.raises(RuntimeError):
+            factory(cfg)

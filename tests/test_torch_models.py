@@ -235,10 +235,16 @@ def test_decode_matches_forward(variant):
     assert max(errs) < 2e-3, errs
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-3b"])
-def test_unported_kinds_name_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md queue 1, item 8\.4"):
-        ttr.init_params(tcfgs.get_reduced_config(arch), torch.Generator())
+def test_every_kind_of_every_config_is_ported():
+    """``layer_kinds`` accepts every kind of the ten configs, and every
+    reduced config builds its parameters."""
+    for arch in tcfgs.list_archs():
+        kinds = set(ttr.layer_kinds(tcfgs.get_config(arch)))
+        assert kinds <= set(ttr._KINDS), arch
+        ttr.init_params(tcfgs.get_reduced_config(arch), torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="unknown layer kind"):
+        ttr.layer_kinds(dataclasses.replace(tcfgs.get_reduced_config("qwen2-0.5b"),
+                                            segments=((("mamba",), 1),)))
 
 
 # ---------------------------------------------------------------------------

@@ -160,6 +160,23 @@ def test_parallel_scan_equals_the_sequential_loop(s):
     torch.testing.assert_close(last, want[-1], atol=1e-6, rtol=0)
 
 
+def test_scan_with_grad_equals_the_scan_without():
+    """With grad the scan builds new buffers each round instead of writing
+    in place: the same sums in the same order, so bit-equal outputs, and
+    gradients that match finite differences."""
+    rng = np.random.default_rng(11)
+    a = torch.from_numpy(rng.uniform(0.0, 1.0, (2, 37, 5)))
+    g = torch.from_numpy(rng.standard_normal((2, 37, 5)))
+    h0 = torch.from_numpy(rng.standard_normal((2, 5)))
+    with torch.no_grad():
+        hs, last = trg._lru_scan(a, g, h0)
+    leaves = [t.clone().requires_grad_() for t in (a, g, h0)]
+    ghs, glast = trg._lru_scan(*leaves)
+    assert ghs.requires_grad and torch.equal(ghs.detach(), hs)
+    assert torch.equal(glast.detach(), last)
+    assert torch.autograd.gradcheck(lambda *x: trg._lru_scan(*x)[0].sum(), leaves)
+
+
 def test_scan_survives_decays_near_zero():
     """log a_t down to −48 a step (r near 1, Λ at its top): the products
     underflow to 0 and h forgets, with no inf or NaN."""
