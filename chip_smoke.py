@@ -221,6 +221,36 @@ Builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    the flash kernel at the step's shape in bf16 and its backward
    (``attention_vjp``) in bf16 and f32 beside
    ``scaled_dot_product_attention``'s forward and backward.
+15. Runs the step factories on a 2 × 2 ``("data", "model")`` mesh
+   (``MESH_STEP_SHAPE``; ``launch.mesh.Mesh`` over ``mesh_of``'s positions,
+   all on one card when there is one: the positions run one after another,
+   so this measures the sharded steps' cost, not scaling), after phase 14's
+   state is freed. (a) ``launch.steps.make_gcn_step`` on phase 2's reddit
+   (its published widths; the schedule with one column block, since the
+   nine-array form reads ``lcol`` as the global column) against phase 2's
+   single-device forward at the f32 tolerance, with the SpMM launch counts
+   reset just before and read after: each data position's step range runs
+   the window and the epilogue kernel once a layer (2 × 2 × 2); the kernels
+   held and timed on data position 0's range beside their plain versions
+   and ``torch.sparse.mm`` on that range's entries. (b)
+   ``make_train_step`` on qwen2-0.5b at full width and depth with phase
+   14's batches for ``MESH_TRAIN_STEPS`` steps (parameters and optimizer
+   state stored by ``partition``'s specs: each position's bytes must equal
+   its specs' local shards, and the card's allocation the shards' within
+   5 %): step 1's loss and global grad norm against phase 14's
+   single-device step within phase 14's bf16 tolerance, the loss falling,
+   the flash kernel launched once per model position on its head slice (7
+   heads on 1 KV head), twice a layer with remat: 192 launches a step. (c)
+   The mesh prefill and decode (``spmd.prefill``, ``spmd.decode_step``) on
+   phase 4's prompts (f32) and ``MESH_DECODE`` teacher-forced tokens, with
+   and without ``seq_shard_kv``, against the single-device engine at the LM
+   tolerance; 24 × 4 flash launches in each prefill; then
+   ``make_prefill_step`` and ``make_decode_step``, which run them in bf16,
+   for a prefill and a decode step (finite logits, 96 flash launches, their
+   logs of collectives; the error against the f32 engine is reported). (d)
+   The dry-run's
+   ``qwen2-0.5b train_4k`` and ``gcn-reddit`` cells on the 16 × 16
+   production mesh (meta device), printed.
 
 Float32 matmuls and cuDNN run without TF32 (both flags are set False), so
 every float32 product is full float32. Tolerances, each scaled by
@@ -245,7 +275,9 @@ entries ``flash_attention@<arch>``), ``{"whisper_serving": ...}`` and
 entries ``flash_attention@whisper-tiny`` and
 ``flash_attention@recurrentgemma-2b``), ``{"rwkv_serving": ...}`` and
 ``{"lm_training": ...}`` lines (phases 13 and 14; the latter's flash entry
-``flash_attention@lm-training``), the card's name and power limit, and
+``flash_attention@lm-training``), a ``{"mesh_steps": ...}`` line (phase 15;
+its kernels entries ``spmm_balanced@mesh``, ``spmm_epilogue@mesh`` and
+``flash_attention@mesh-train``), the card's name and power limit, and
 as its last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device, or without the rest of the repository, it exits
@@ -347,6 +379,12 @@ TRAIN_SPANS = {"train.forward": "forward", "train.cross_entropy": "cross_entropy
                "train.optimizer": "optimizer"}
 TRAIN_PARTS = ("forward", "flash_forward", "cross_entropy", "backward", "flash_backward",
                "optimizer", "other")
+# phase 15: the step factories on a (data, model) mesh over mesh_of's
+# positions: phase 14's training for MESH_TRAIN_STEPS steps, phase 4's
+# prompts with MESH_DECODE teacher-forced decode steps, and the dry-run's
+# MESH_DRYRUN cells on the 16 × 16 production mesh
+MESH_STEP_SHAPE, MESH_TRAIN_STEPS, MESH_DECODE = (2, 2), 5, 8
+MESH_DRYRUN = (("qwen2-0.5b", "train_4k"), ("gcn-reddit", "train_4k"))
 # the flash kernel's checks: (b, sq, sk, h, hkv, d), the JAX kernel tests'
 # shapes then the configs' head widths at a length no tile divides
 ATTN_SHAPES = [(2, 32, 32, 4, 4, 16), (1, 48, 48, 8, 2, 32), (2, 16, 64, 4, 1, 16),
@@ -3264,6 +3302,363 @@ def phase_lm_training(dev):
     return record, entry
 
 
+def step_mesh(dev):
+    """Phase 15's ``MESH_STEP_SHAPE`` (data × model) mesh over ``mesh_of``'s
+    positions: on one card every position names it."""
+    from repro_torch.launch.mesh import Mesh
+
+    d, m = MESH_STEP_SHAPE
+    return Mesh(mesh_of(dev, d * m), (d, m), ("data", "model"))
+
+
+def mesh_gcn(dev, ds, mesh):
+    """15a: ``make_gcn_step`` on reddit against phase 2's single-device
+    forward; the SpMM kernels held and timed on data position 0's step
+    range. Returns the record and the kernels line's ``@mesh`` entries."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import schedule as tsched
+    from repro_torch.kernels import spmm_cuda
+    from repro_torch.launch import steps
+    from repro_torch.sharding import spmd
+    from repro_torch.tuning import registry
+
+    m, n = ds.adj.shape
+    params, xb = phase9_requests(ds, dev)
+    single = registry.get_executor(ds.adj, device=dev)  # phase 2's executor
+    gold = single.forward_batch(params, xb[:1])[0]
+    sched = single.sched
+    one_block = sched.cols_per_block >= n
+    build_s = 0.0
+    if not one_block:  # the nine-array form reads lcol as the global column
+        t0 = time.perf_counter()
+        sched = tsched.build_balanced_schedule(ds.adj, sched.nnz_per_step,
+                                               sched.rows_per_window)
+        build_s = time.perf_counter() - t0
+    k, r = sched.nnz_per_step, sched.rows_per_window
+    fn, specs = steps.make_gcn_step(mesh, m, ds.num_features, ds.hidden, ds.num_classes,
+                                    sched.n_steps, k, r)
+
+    def padded(a, spec, fill=0):
+        out = np.full(tuple(spec.shape), fill, a.dtype)
+        out[tuple(slice(0, d) for d in a.shape)] = a
+        return torch.from_numpy(out).to(dev)
+
+    arrays = [padded(sched.val.reshape(-1, k), specs[3]),
+              padded(sched.local_row.reshape(-1, k), specs[4]),
+              padded(sched.local_col.reshape(-1, k), specs[5]),
+              padded(sched.win_id, specs[6]), padded(sched.col_block, specs[7]),
+              padded(sched.row_map, specs[8], -1)]
+    x = torch.zeros(tuple(specs[0].shape), device=dev)
+    x[:, :ds.num_features] = xb[0]
+    w1 = torch.zeros(tuple(specs[1].shape), device=dev)
+    w1[:ds.num_features, :ds.hidden] = params["w0"]
+    w2 = torch.zeros(tuple(specs[2].shape), device=dev)
+    w2[:ds.hidden] = params["w1"]
+    args = [x, w1, w2] + arrays
+    torch.cuda.synchronize()
+    spmm_cuda.reset_launches()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(spmm_cuda.LAUNCHES)
+    n_data = spmd.data_size(mesh)
+    for name in F32_SPMM:
+        if launches[name] != 2 * n_data:
+            raise AssertionError(f"make_gcn_step launched {name} {launches[name]} times; "
+                                 f"expected {2 * n_data} (one a data position and layer)")
+    if out.shape != (m, ds.num_classes) or not torch.isfinite(out).all():
+        raise AssertionError(f"make_gcn_step logits {tuple(out.shape)} malformed")
+    err = check("make_gcn_step vs the single-device forward", out, gold, torch.float32)
+    if not torch.equal(out, fn(*args)):
+        raise AssertionError("make_gcn_step: two calls differ")
+    step_ms = timed_ms(lambda: fn(*args), 3)
+    single_ms = timed_ms(lambda: single.forward_batch(params, xb[:1]), 3)
+    del out, gold
+
+    # the kernels on data position 0's step range, at the layers' widths
+    steps0 = next(v for key, v in fn.plans.items() if key[0] == 0)
+    per = specs[3].shape[0] // n_data
+    val, lrow, lcol, win, _, rmap = (a.cpu().numpy() for a in arrays)
+    live = val[:per] != 0
+    rows_a = rmap[win[:per, None].astype(np.int64) * r + lrow[:per]][live]
+    a0 = torch.sparse_coo_tensor(
+        torch.from_numpy(np.stack([rows_a, lcol[:per][live]]).astype(np.int64)),
+        torch.from_numpy(val[:per][live]), (m, n)).coalesce().to_sparse_csr().to(dev)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    rows = {"spmm_balanced": [], "spmm_epilogue": []}
+    for kdim in (ds.hidden, ds.num_classes):
+        b = torch.randn((n, kdim), generator=gen, device=dev)
+        window, epilogue, _ = spmm_rows(steps0, a0, b, 128, what="mesh ")
+        rows["spmm_balanced"].append({**window, "main_path": True})
+        rows["spmm_epilogue"].append({**epilogue, "main_path": True})
+        del b
+    entries = kernel_entries(rows, launches, "data position 0's step range, both layers "
+                             "(kdim 128 and 41); launches per make_gcn_step call", "@mesh")
+    record = {"graph": "reddit", "nodes": m, "nnz": int(sched.nnz),
+              "schedule_one_column_block": True, "schedule_rebuilt": not one_block,
+              "schedule_build_s": build_s, "n_steps": sched.n_steps,
+              "n_steps_padded": int(specs[3].shape[0]), "steps_per_data_position": per,
+              "launches": {name: launches[name] for name in F32_SPMM},
+              "max_abs_err_vs_single": err, "first_call_s": first_s,
+              "step_ms": step_ms, "single_device_forward_ms": single_ms}
+    del a0, arrays, args, fn
+    torch.cuda.empty_cache()
+    return record, entries
+
+
+def mesh_train(dev, mesh, grad_check):
+    """15b: qwen2-0.5b trained on the mesh at full width and depth with
+    phase 14's batches; step 1 against phase 14's single-device step.
+    Returns the record and the ``flash_attention@mesh-train`` entry."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import flash_attention_cuda as tfa
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tr
+    from repro_torch.sharding import partition, spmd
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training.tree import flatten_with_paths, tree_map
+
+    cfg = configs.get_config(LM_ARCH)
+    b, s = TRAIN_LM_BATCH, TRAIN_LM_SEQ
+    specs = {k: torch.empty((b, s), dtype=torch.int32, device="meta")
+             for k in ("tokens", "labels")}
+    step, (param_specs, _) = steps.make_train_step(
+        cfg, mesh, specs, opt_cfg=opt_mod.AdamWConfig(**TRAIN_LM_ADAMW))
+    pspecs = partition.param_pspecs(cfg, param_specs, mesh)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    master = tr.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    params = spmd.shard_tree(tree_map(lambda t: t.to(torch.bfloat16), master), pspecs, mesh)
+    opt_state = spmd.shard_tree(opt_mod.adamw_init(master),
+                                partition.opt_state_pspecs(pspecs), mesh)
+    del master
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev) - base
+    leaves = list(flatten_with_paths((params, opt_state)).values())
+    stored = sum(t.nbytes for sh in leaves for t in sh.copies.values())
+    per_position = {}
+    for pos in mesh.positions():
+        got = sum(sh.nbytes_at(pos) for sh in leaves)
+        want = sum(partition.local_nbytes(sh.shape, sh.dtype, sh.spec, mesh) for sh in leaves)
+        if got != want:
+            raise AssertionError(f"position {pos} holds {got} bytes; its specs' local "
+                                 f"shards are {want}")
+        per_position[str(pos)] = got
+    if not abs(held - stored) <= 0.05 * stored:
+        raise AssertionError(f"the card holds {held} bytes for {stored} bytes of shards")
+    pipe = TokenPipeline(cfg.vocab, b, s, seed=0)  # phase 14's batches
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, gnorms, secs, launches = [], [], [], []
+    for _ in range(MESH_TRAIN_STEPS):
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in pipe.next_batch().items()}
+        tfa.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step(params, opt_state, batch)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        secs.append(time.perf_counter() - t0)
+        launches.append(tfa.LAUNCHES["flash_attention"])
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    want_launches = 2 * cfg.n_layers * mesh.size
+    if set(launches) != {want_launches}:
+        raise AssertionError(f"flash launches per mesh step {launches}; expected "
+                             f"{want_launches} (forward and recompute, a model position "
+                             "each, per data position)")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"the mesh step's loss did not fall: {losses}")
+
+    def limit(own, scale):  # phase 14's: 4× the plain path's bf16 error + 2^-9
+        return 4 * own + 2 ** -9 * scale
+
+    g = grad_check
+    checks = {"loss": (abs(losses[0] - g["loss_kernel"]),
+                       limit(abs(g["loss_plain"] - g["loss_plain_f32"]),
+                             abs(g["loss_plain_f32"]))),
+              "grad_norm": (abs(gnorms[0] - g["grad_norm_kernel"]),
+                            limit(abs(g["grad_norm_plain"] - g["grad_norm_plain_f32"]),
+                                  g["grad_norm_plain_f32"]))}
+    for name, (err, lim) in checks.items():
+        if not err <= lim:
+            raise AssertionError(f"mesh step 1 {name} lies {err} from the single-device "
+                                 f"step's (limit {lim})")
+    del params, opt_state
+    torch.cuda.empty_cache()
+    tp = mesh.shape["model"]
+    shape = (b // spmd.data_size(mesh), s, s, cfg.n_heads // tp, cfg.n_kv_heads // tp,
+             cfg.head_dim)
+    entry = {"name": "flash_attention@mesh-train", "route": "cuda", "source": tfa.SOURCE,
+             "replaces": tfa.REPLACES, "launches": launches[0]}
+    entry.update(flash_timing(dev, shape, dtype=torch.bfloat16))
+    entry["per"] = (f"one call on a model position's head slice: B {shape[0]}, S {s}, H "
+                    f"{shape[3]}, Hkv {shape[4]}, D {shape[5]}, causal, bf16; launches per "
+                    f"mesh train step ({mesh.shape['data']} data × {tp} model positions, "
+                    "forward and remat's recompute)")
+    record = {"arch": cfg.name, "layers": cfg.n_layers, "batch": b, "seq": s,
+              "steps": MESH_TRAIN_STEPS, "losses": losses, "grad_norms": gnorms,
+              "step_ms": [x * 1e3 for x in secs],
+              "step_ms_median_from_step_2": float(np.median(secs[1:])) * 1e3,
+              "flash_launches_per_step": launches[0],
+              "step1_vs_single_device": {k: {"abs_err": e, "limit": lim}
+                                         for k, (e, lim) in checks.items()},
+              "state_bytes_per_position": per_position, "state_bytes_stored": stored,
+              "state_bytes_allocated": held, "peak_gb": peak / 1e9,
+              "activations_gb": (peak - held) / 1e9}
+    return record, entry
+
+
+def mesh_serve(dev, mesh):
+    """15c: qwen2-0.5b's prefill and ``MESH_DECODE`` teacher-forced decode
+    steps on the mesh (``spmd.prefill``, ``spmd.decode_step``), with and
+    without the sequence-sharded cache, against the single-device engine at
+    the LM tolerance (phase 4's prompts, f32); then the bf16 step factories
+    over them, a prefill and a decode step."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention_cuda as tfa
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.transformer_serve import ServeEngine
+    from repro_torch.sharding import spmd
+    from repro_torch.training.tree import tree_map
+
+    cfg = configs.get_config(LM_ARCH)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in LM_PROMPTS]
+    params = tr.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    eng = ServeEngine(cfg, params, max_seq=LM_MAX_SEQ, device=dev)
+    toks, gold = eng.run(prompts, MESH_DECODE)
+    forced = torch.tensor([t[-MESH_DECODE:] for t in toks], device=dev)
+    plen = max(len(p) for p in prompts)
+    tokens = torch.zeros((len(prompts), plen), dtype=torch.long)
+    for i, p in enumerate(prompts):  # right-aligned, as ServeEngine.run
+        tokens[i, plen - len(p):] = torch.tensor(p)
+    batch = {"tokens": tokens.to(dev)}
+    tol_lm = LM_TOL * max(1.0, float(gold.abs().max()))
+    runs = {}
+    f32 = torch.float32
+    for seq_shard in (False, True):
+        tfa.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = spmd.prefill(cfg, mesh, params, batch, LM_MAX_SEQ, compute_dtype=f32)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        prefill_launches = tfa.LAUNCHES["flash_attention"]
+        if seq_shard:  # the prefill's cache, resharded by sequence
+            cache = spmd.unshard_tree(cache, dev)
+        outs = [logits[:, -1]]
+        t0 = time.perf_counter()
+        for i in range(MESH_DECODE - 1):
+            log = []
+            logits, cache = spmd.decode_step(cfg, mesh, params, cache, forced[:, i], plen + i,
+                                             seq_shard, compute_dtype=f32, log=log)
+            outs.append(logits[:, -1])
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / (MESH_DECODE - 1)
+        got = torch.stack(outs, dim=1)
+        err = (got - gold).abs().amax(dim=(0, 2))
+        if not float(err.max()) <= tol_lm:
+            raise AssertionError(f"mesh serving (seq_shard_kv={seq_shard}): logits max "
+                                 f"|err| {float(err.max())} > {tol_lm}")
+        want = cfg.n_layers * mesh.size
+        if prefill_launches != want:
+            raise AssertionError(f"the mesh prefill launched the flash kernel "
+                                 f"{prefill_launches} times; expected {want}")
+        runs["seq_shard_kv" if seq_shard else "heads"] = {
+            "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+            "prefill_flash_launches": prefill_launches,
+            "max_abs_err_prefill": float(err[0]), "max_abs_err_decode": float(err[1:].max()),
+            "collectives_per_decode": len(log)}
+        del cache, logits, got
+    # the step factories as a user calls them (bf16 weights and compute):
+    # spmd's prefill and one decode step
+    params16 = tree_map(lambda t: t.to(torch.bfloat16), params)
+    prefill, _ = steps.make_prefill_step(cfg, mesh, None, LM_MAX_SEQ)
+    decode, _ = steps.make_decode_step(cfg, mesh, len(prompts), LM_MAX_SEQ)
+    tfa.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first, cache = prefill(params16, batch)
+    second, cache = decode(params16, cache, forced[:, 0], plen)
+    torch.cuda.synchronize()
+    factory_ms = (time.perf_counter() - t0) * 1e3
+    got = torch.cat([first, second], dim=1).float()
+    if (got.shape != gold[:, :2].shape or not torch.isfinite(got).all()
+            or tfa.LAUNCHES["flash_attention"] != cfg.n_layers * mesh.size
+            or not (prefill.log and decode.log)):
+        raise AssertionError(f"the bf16 mesh step factories: logits {tuple(got.shape)}, "
+                             f"{tfa.LAUNCHES['flash_attention']} flash launches, "
+                             f"{len(prefill.log)} + {len(decode.log)} collectives")
+    runs["factories_bf16"] = {"prefill_and_one_decode_ms": factory_ms,
+                              "max_abs_err_vs_f32_engine": float((got - gold[:, :2]).abs().max()),
+                              "collectives": len(prefill.log) + len(decode.log)}
+    del params16, cache, first, second, got
+    record = {"arch": cfg.name, "prompt_lens": list(LM_PROMPTS), "max_seq": LM_MAX_SEQ,
+              "decode_steps": MESH_DECODE, "dtype": "float32", "tolerance": tol_lm,
+              "single_device_prefill_ms": eng.last_timing["prefill_s"] * 1e3, "runs": runs}
+    del params, eng, gold
+    torch.cuda.empty_cache()
+    return record
+
+
+def mesh_dryrun() -> dict:
+    """15d: the dry-run's ``MESH_DRYRUN`` cells on the 16 × 16 production
+    mesh (meta device; written under ``build/``), printed."""
+    from repro_torch.launch import dryrun
+
+    out = {}
+    for arch, shape in MESH_DRYRUN:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, "single", force=True,
+                              out_dir=ROOT / "build" / "dryrun_torch")
+        print(f"[phase 15d] {dryrun.summary_line(rec, time.perf_counter() - t0)}",
+              file=sys.stderr)
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry-run {arch} {shape}: {rec.get('error')}")
+        out[f"{arch}/{shape}"] = {
+            key: rec[key] for key in ("chips", "flops", "bytes", "hbm_bytes_model",
+                                      "argument_bytes", "temp_bytes", "peak_bytes_est",
+                                      "collectives", "roofline")}
+    return out
+
+
+def phase_mesh_steps(dev, ds, grad_check):
+    """The step factories on a data × model mesh; see the module
+    docstring's phase 15. Returns the ``mesh_steps`` record and the kernels
+    line's entries."""
+    mesh = step_mesh(dev)
+    parts = {}
+    t0 = time.perf_counter()
+    gcn, entries = mesh_gcn(dev, ds, mesh)
+    parts["gcn_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train, flash = mesh_train(dev, mesh, grad_check)
+    parts["train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve = mesh_serve(dev, mesh)
+    parts["serve_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dry = mesh_dryrun()
+    parts["dryrun_s"] = time.perf_counter() - t0
+    record = {"mesh": dict(mesh.shape), "positions": [str(d) for d in mesh_of(dev, mesh.size)],
+              "cards": len({str(d) for d in mesh_of(dev, mesh.size)}),
+              "note": "positions that name one card run one after another: this "
+                      "measures the sharded steps' cost, not scaling",
+              "gcn": gcn, "train": train, "serve": serve, "dryrun": dry, "seconds": parts}
+    return record, entries + [flash]
+
+
 def flash_registers() -> dict:
     """Registers and spill bytes (ptxas), dynamic shared bytes and SASS
     ``HMMA`` instructions of each instantiation of the flash kernel; raises
@@ -3387,7 +3782,6 @@ def main() -> int:
     mesh_engine = phase_mesh_engine(dev, ds)
     print(f"[phase 9b] mesh engine (sharded reddit, replicas, updates, a fault) in "
           f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
-    del ds
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     moe_serving, moe_entries = phase_moe(dev)
@@ -3417,6 +3811,18 @@ def main() -> int:
     kernels.append(training_entry)
     print(f"[phase 14] trained {LM_ARCH} ({TRAIN_LM_STEPS} steps, resumed from step "
           f"{TRAIN_LM_SAVE_AT}) in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh_steps, mesh_entries = phase_mesh_steps(dev, ds, lm_training["grad_check"])
+    mesh_steps["seconds"]["phase"] = time.perf_counter() - t0
+    mesh_steps["card"] = card
+    mesh_steps["train"]["single_device_step_ms_median_phase14"] = lm_training[
+        "step_ms_median"]
+    kernels.extend(mesh_entries)
+    del ds
+    torch.cuda.empty_cache()
+    print(f"[phase 15] mesh steps (gcn, train, prefill/decode, dry-run) in "
+          f"{mesh_steps['seconds']['phase']:.1f} s", file=sys.stderr)
     for entry in kernels:
         if entry["name"] in F32_SPMM:
             entry["launches_sharded_forward_batch"] = {
@@ -3451,6 +3857,7 @@ def main() -> int:
     print(json.dumps({"recurrentgemma_serving": rgemma}))
     print(json.dumps({"rwkv_serving": rwkv}))
     print(json.dumps({"lm_training": lm_training}))
+    print(json.dumps({"mesh_steps": mesh_steps}))
     # the window kernel's bound if every gathered B row came from HBM, per kdim
     print(json.dumps({"spmm_balanced_bound_all_miss_ms": all_miss}))
     # the flash kernel's bounds at the prefill shape: tensor cores (3xTF32 in

@@ -9,7 +9,9 @@ The statistics are f32 and the output takes q's dtype.
 
 The wrapper takes the kernel's plain PyTorch version
 (``flash_attention_plain``) only for tensors on the CPU. CUDA tensors launch
-the kernel or raise. ``LAUNCHES`` counts launches, so a run can show that
+the kernel or raise, through the operator ``flash_attention_op``
+(``repro_torch::flash_attention``), whose meta version lets a program on
+the meta device count the kernel's work (``launch.dryrun``). ``LAUNCHES`` counts launches, so a run can show that
 its path went through the kernel.
 
 Gradients: when grad is enabled and an input requires it, the call goes
@@ -27,7 +29,9 @@ import contextlib
 import ctypes
 import functools
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 
@@ -105,12 +109,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _forward(q, k, v, causal, window, scale) -> torch.Tensor:
-    """The kernel's launch, or the plain version for tensors on the CPU."""
+    """The kernel's launch (``flash_attention_op``), or the plain version
+    for tensors on the CPU. Meta tensors take the operator's meta version,
+    which the dry-run counts (``launch.dryrun``)."""
     devices = {t.device for t in (q, k, v)}
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale)
-    if len(devices) != 1 or not q.is_cuda:
+    if len(devices) != 1 or not (q.is_cuda or q.is_meta):
         raise ValueError(f"q, k and v lie on {sorted(map(str, devices))}; "
                          "the kernel needs them all on one CUDA device")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
@@ -118,17 +124,28 @@ def _forward(q, k, v, causal, window, scale) -> torch.Tensor:
                          "kernel takes all float32 or all bfloat16")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous [B, S, H, D]")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
+    if q.is_cuda and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must start on a 16-byte boundary: the kernel "
                          "copies them with 16-byte cp.async")
-    b, sq, h, d = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
+    b, _, h, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"head width {d}; the kernel is built for {HEAD_DIMS}")
     if b * h > _MAX_GRID_Y:
         raise ValueError(f"B·H = {b * h} exceeds the grid's {_MAX_GRID_Y}")
-    if scale is None:
-        scale = d ** -0.5
+    return flash_attention_op(q, k, v, bool(causal), int(window or 0),
+                              float(d ** -0.5 if scale is None else scale))
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                       window: int, scale: float) -> torch.Tensor:
+    """The kernel's launch as an operator (``window`` 0: none) on tensors
+    ``_forward`` has checked. Its meta version allocates the output and
+    nothing else, and ``FlopCounterMode`` counts it by ``_flops``: a program
+    on the meta device counts the attention the card runs, with no S × S
+    tensor."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -137,12 +154,33 @@ def _forward(q, k, v, causal, window, scale) -> torch.Tensor:
         LAUNCHES["flash_attention"] += 1
         err = _lib().awb_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk,
-            h, hkv, d, int(causal), window or 0, float(scale),
+            h, hkv, d, int(causal), window, scale,
             int(q.dtype == torch.bfloat16), stream,
         )
     if err:
         raise RuntimeError(f"awb_flash_attention launch failed: cudaError {err}")
     return out
+
+
+@flash_attention_op.register_fake
+def _(q, k, v, causal, window, scale):
+    return torch.empty_like(q)
+
+
+def visible_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """The (query, key) pairs the masks leave visible, queries aligned at
+    Sk − Sq: what the kernel must compute."""
+    qpos = np.arange(sq) + (sk - sq)
+    hi = np.minimum(qpos + 1, sk) if causal else np.full(sq, sk)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(sq, np.int64)
+    return int(np.clip(hi - lo, 0, None).sum())
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flops(q_shape, k_shape, v_shape, causal, window, scale, *args, **kwargs) -> int:
+    """Q·Kᵀ and P·V over the visible pairs: 4·B·H·D a pair."""
+    b, sq, h, d = q_shape
+    return 4 * b * h * d * visible_pairs(sq, k_shape[1], causal, window)
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -69,10 +69,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the chunked oracle when ``chunk`` is given and ``attention_ref``
     otherwise; on a CUDA tensor it runs the kernel's plain version.
     ``block_q``/``block_k`` keep the JAX signature: the kernel's tiles are
-    fixed when it is compiled."""
-    backend = backend or default_backend(q)
+    fixed when it is compiled. Meta tensors (the dry-run) take the card's
+    path by default, through the kernel's operator's meta version."""
+    backend = backend or ("cuda" if q.is_meta else default_backend(q))
     if backend == "cuda":
-        if not q.is_cuda:
+        if not (q.is_cuda or q.is_meta):
             raise ValueError(f"backend 'cuda' needs CUDA tensors; q is on {q.device}")
         return _fa.flash_attention(q, k, v, causal=causal, window=window, scale=scale)
     if backend != "torch":

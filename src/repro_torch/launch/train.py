@@ -4,10 +4,12 @@ factory of ``launch.steps``.
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
         --reduced --steps 50 --batch 8 --seq 64 --ckpt-dir /tmp/ckpt
 
-The counterpart of ``repro.launch.train``, with its flags, on one resolved
-device in place of a local mesh: ``--device`` defaults to the current CUDA
-device and takes ``cpu`` only when asked. Working parameters are bf16 and
-the optimizer keeps the f32 master. Fault tolerance: atomic keep-2
+The counterpart of ``repro.launch.train``, with its flags: ``--device``
+defaults to the current CUDA device and takes ``cpu`` only when asked.
+``--model-axis N`` (as in the JAX package) trains on a local data × model
+mesh (``launch.mesh.make_local_mesh``): every card, N along ``model``; with
+``--device``, N positions of that device along ``model``. Working
+parameters are bf16 and the optimizer keeps the f32 master. Fault tolerance: atomic keep-2
 checkpoints of (parameters, optimizer state) with the data cursor every
 ``--ckpt-every`` steps, in the JAX package's parameter layout, so either
 package's ``CheckpointManager`` reads them and ``launch.serve --ckpt-dir``
@@ -26,9 +28,11 @@ from repro_torch import configs as cfgs
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.device import resolve_device
 from repro_torch.launch import steps
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import transformer as tr
 from repro_torch.training import optimizer as opt_mod
 from repro_torch.training.checkpoint import CheckpointManager
+from repro_torch.sharding.spmd import unshard_tree
 from repro_torch.training.tree import tree_map
 
 
@@ -63,26 +67,28 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--model-axis", type=int, default=1,
-                    help="kept for the JAX package's command line; one device has 1")
+                    help="positions along the mesh's model axis; 1: one device, no mesh")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="default: the current CUDA device; 'cpu' runs on the host")
     args = ap.parse_args(argv)
-    if args.model_axis != 1:
-        raise ValueError("--model-axis > 1 needs the LM sharding (ROADMAP queue 1, "
-                         "item 9(c)); this entry point runs on one device")
 
     cfg = (cfgs.get_reduced_config(args.arch) if args.reduced
            else cfgs.get_config(args.arch))
     dev = resolve_device(args.device)
+    mesh = None
+    if args.model_axis > 1:
+        devices = None if args.device is None else [args.device] * args.model_axis
+        mesh = make_local_mesh(args.model_axis, devices)
+        dev = mesh.device(mesh.positions()[0])
     opt_cfg = opt_mod.AdamWConfig(lr=args.lr, warmup_steps=10,
                                   total_steps=max(args.steps, 11))
 
     pipe = TokenPipeline(cfg.vocab, args.batch, args.seq, seed=args.seed)
     batch_specs = {k: torch.empty((args.batch, args.seq), dtype=torch.int32,
                                   device="meta") for k in ("tokens", "labels")}
-    train_step, _ = steps.make_train_step(cfg, dev, batch_specs, opt_cfg=opt_cfg)
+    train_step, _ = steps.make_train_step(cfg, mesh or dev, batch_specs, opt_cfg=opt_cfg)
 
     params_f32 = tr.init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed))
     params = tree_map(lambda x: x.to(torch.bfloat16), params_f32)
@@ -108,6 +114,9 @@ def main(argv=None):
             batch["source_embed"] = torch.zeros(
                 (args.batch, cfg.encoder.max_source, cfg.d_model))
         params, opt_state, metrics = train_step(params, opt_state, batch)
+        if mesh is not None and mgr and ((step + 1) % args.ckpt_every == 0
+                                         or step == args.steps - 1):
+            params, opt_state = unshard_tree(params, dev), unshard_tree(opt_state, dev)
         losses.append(float(metrics["loss"]))
         if step % args.log_every == 0 or step == args.steps - 1:
             dt = time.time() - t0

@@ -38,7 +38,7 @@ package does.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -307,11 +307,28 @@ def jax_layout(cfg: ModelConfig, params: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
+@dataclasses.dataclass(frozen=True)
+class LayerOps:
+    """The calls a layer makes for its self-attention and its dense MLP,
+    with the signatures of ``attention.attn_forward``, ``attn_prefill``,
+    ``attn_decode`` and ``mlp.mlp_forward``. ``PLAIN`` is the model's own; a
+    sharded step (``sharding.spmd.Run.ops``) passes versions that split them
+    over a mesh's model positions and read ``p["attn"]``/``p["mlp"]`` as it
+    gathered them."""
+    attn_forward: Callable = attn_forward
+    attn_prefill: Callable = attn_prefill
+    attn_decode: Callable = attn_decode
+    mlp_forward: Callable = mlp_mod.mlp_forward
+
+
+PLAIN = LayerOps()
+
+
 def _norm(cfg, p, x):
     return common.apply_norm(cfg.norm, x, p)
 
 
-def _ffn(cfg, kind, p, x, capacity_override=None) -> tuple:
+def _ffn(cfg, kind, p, x, capacity_override=None, ops: LayerOps = PLAIN) -> tuple:
     """The layer's last residual block, dense MLP or MoE, after ``norm3``
     in an ``xattn`` layer and ``norm2`` otherwise. Returns (x, the MoE's aux
     loss or None)."""
@@ -320,14 +337,14 @@ def _ffn(cfg, kind, p, x, capacity_override=None) -> tuple:
         out, aux = moe_mod.moe_forward(p["moe"], cfg.moe_dims, h,
                                        capacity_override=capacity_override)
         return x + out, aux
-    return x + mlp_mod.mlp_forward(p["mlp"], h, cfg.activation, cfg.glu), None
+    return x + ops.mlp_forward(p["mlp"], h, cfg.activation, cfg.glu), None
 
 
-def _recurrent(cfg, p, x, state) -> tuple:
+def _recurrent(cfg, p, x, state, ops: LayerOps = PLAIN) -> tuple:
     """An ``rglru`` layer from ``state``: (x, the new state)."""
     h, state = rglru_mod.rglru_forward(p["rec"], cfg.rglru_dims,
                                        _norm(cfg, p["norm1"], x), state)
-    x, _ = _ffn(cfg, "rglru", p, x + h)
+    x, _ = _ffn(cfg, "rglru", p, x + h, ops=ops)
     return x, state
 
 
@@ -364,17 +381,15 @@ def _cross(cfg, p, x, k, v, backend) -> torch.Tensor:
                             causal=False, backend=backend, cross_kv=(k, v))
 
 
-def _encode(cfg: ModelConfig, params: dict, batch: dict, dtype, backend):
+def _encode(cfg: ModelConfig, params: dict, batch: dict, dtype, backend,
+            ops: LayerOps = PLAIN):
     """The encoder's output for ``batch["source_embed"]`` (bidirectional
     attention with RoPE on frame positions), or None without an encoder."""
     if cfg.encoder is None:
         return None
     x = batch["source_embed"].to(dtype)
-    dims = cfg.attn_dims(None)
     for p in params["encoder"]:
-        x = x + attn_forward(p["attn"], dims, _norm(cfg, p["norm1"], x), causal=False,
-                             backend=backend)
-        x, _ = _ffn(cfg, "enc", p, x)
+        x, _ = _layer(cfg, "enc", p, x, None, backend, ops)
     return _norm(cfg, params["enc_norm"], x)
 
 
@@ -390,39 +405,41 @@ def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def _layer(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, enc_out,
-           backend) -> tuple:
-    """One decoder layer of ``model_forward``, a recurrent one from a zero
-    state: (x, the MoE's aux loss or None)."""
+           backend, ops: LayerOps = PLAIN) -> tuple:
+    """One decoder (or ``enc``) layer of ``model_forward``, a recurrent one
+    from a zero state: (x, the MoE's aux loss or None)."""
     if kind == "rglru":
         state = rglru_mod.init_rglru_state(cfg.rglru_dims, x.shape[0], x.device)
-        return _recurrent(cfg, p, x, state)[0], None
+        return _recurrent(cfg, p, x, state, ops)[0], None
     if kind == "rwkv":
         state = rwkv_mod.init_rwkv_state(cfg.rwkv_dims, x.shape[0], x.device)
         return _rwkv(cfg, p, x, state, backend)[0], None
-    x = x + attn_forward(p["attn"], cfg.attn_dims(_window(cfg, kind)),
-                         _norm(cfg, p["norm1"], x), causal=kind != "enc",
-                         backend=backend)
+    x = x + ops.attn_forward(p["attn"], cfg.attn_dims(_window(cfg, kind)),
+                             _norm(cfg, p["norm1"], x), causal=kind != "enc",
+                             backend=backend)
     if kind == "xattn":
         x = _cross(cfg, p, x, *_cross_kv(cfg, p, enc_out), backend)
-    return _ffn(cfg, kind, p, x)
+    return _ffn(cfg, kind, p, x, ops=ops)
 
 
 def model_forward(cfg: ModelConfig, params: dict, batch: dict,
                   backend: Optional[str] = None,
-                  compute_dtype=torch.bfloat16) -> tuple:
+                  compute_dtype=torch.bfloat16, ops: LayerOps = PLAIN) -> tuple:
     """batch: {'tokens': [B, S] int, optional 'source_embed': [B, T, d]}.
     Returns (logits [B, S, vocab], aux_loss): the sum of the MoE layers'
-    aux losses, 0 without one."""
+    aux losses, 0 without one. ``params["layers"]`` may be any sequence
+    that yields each layer's parameters as it is read (a sharded step's
+    gathers, ``sharding.spmd.Run.at``)."""
     x = _embed(params, batch["tokens"], compute_dtype)
-    enc_out = _encode(cfg, params, batch, compute_dtype, backend)
+    enc_out = _encode(cfg, params, batch, compute_dtype, backend, ops)
     aux_total = torch.zeros((), device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for kind, p in zip(layer_kinds(cfg), params["layers"]):
         if remat:
-            x, aux = checkpoint(_layer, cfg, kind, p, x, enc_out, backend,
+            x, aux = checkpoint(_layer, cfg, kind, p, x, enc_out, backend, ops,
                                 use_reentrant=False)
         else:
-            x, aux = _layer(cfg, kind, p, x, enc_out, backend)
+            x, aux = _layer(cfg, kind, p, x, enc_out, backend, ops)
         if aux is not None:
             aux_total = aux_total + aux
     return _logits(cfg, params, x), aux_total
@@ -454,6 +471,41 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
             for kind in layer_kinds(cfg)]
 
 
+def _layer_prefill(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, c: dict,
+                   enc_out, backend, ops: LayerOps = PLAIN) -> torch.Tensor:
+    """One decoder layer of ``prefill``: x after the layer, its cache ``c``
+    written in place."""
+    if kind == "rglru":
+        x, state = _recurrent(cfg, p, x, c, ops)
+        c.update(state)
+        return x
+    if kind == "rwkv":
+        x, state = _rwkv(cfg, p, x, c, backend)
+        c.update(state)
+        return x
+    h, _ = ops.attn_prefill(p["attn"], cfg.attn_dims(_window(cfg, kind)),
+                            _norm(cfg, p["norm1"], x), c, backend)
+    x = x + h
+    if kind == "xattn":
+        x = _cross_prefill(cfg, p, x, c, enc_out, backend)
+    return _ffn(cfg, kind, p, x, ops=ops)[0]
+
+
+def _cross_prefill(cfg: ModelConfig, p: dict, x: torch.Tensor, c: dict, enc_out,
+                   backend) -> torch.Tensor:
+    """An ``xattn`` layer's cross-attention in the prefill: the encoder's
+    keys and values written into ``c["xk"]``/``c["xv"]`` (the frames past
+    the encoder's stay zero)."""
+    k, v = _cross_kv(cfg, p, enc_out)
+    s_enc = k.shape[1]
+    if s_enc > c["xk"].shape[1]:
+        raise ValueError(f"{s_enc} source frames exceed max_source "
+                         f"{c['xk'].shape[1]}")
+    c["xk"][:, :s_enc] = k
+    c["xv"][:, :s_enc] = v
+    return _cross(cfg, p, x, k, v, backend)
+
+
 def prefill(cfg: ModelConfig, params: dict, batch: dict, max_seq: int,
             backend: Optional[str] = None, compute_dtype=torch.bfloat16) -> tuple:
     """Run the prompt (and the encoder over ``batch["source_embed"]``);
@@ -463,27 +515,7 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, max_seq: int,
     enc_out = _encode(cfg, params, batch, compute_dtype, backend)
     cache = init_cache(cfg, tokens.shape[0], max_seq, compute_dtype, x.device)
     for kind, p, c in zip(layer_kinds(cfg), params["layers"], cache):
-        if kind == "rglru":
-            x, state = _recurrent(cfg, p, x, c)
-            c.update(state)
-            continue
-        if kind == "rwkv":
-            x, state = _rwkv(cfg, p, x, c, backend)
-            c.update(state)
-            continue
-        h, _ = attn_prefill(p["attn"], cfg.attn_dims(_window(cfg, kind)),
-                            _norm(cfg, p["norm1"], x), c, backend)
-        x = x + h
-        if kind == "xattn":
-            k, v = _cross_kv(cfg, p, enc_out)
-            s_enc = k.shape[1]
-            if s_enc > c["xk"].shape[1]:
-                raise ValueError(f"{s_enc} source frames exceed max_source "
-                                 f"{c['xk'].shape[1]}")
-            c["xk"][:, :s_enc] = k  # the frames past s_enc stay zero
-            c["xv"][:, :s_enc] = v
-            x = _cross(cfg, p, x, k, v, backend)
-        x, _ = _ffn(cfg, kind, p, x)
+        x = _layer_prefill(cfg, kind, p, x, c, enc_out, backend)
     return _logits(cfg, params, x[:, -1:]), cache
 
 
@@ -499,19 +531,20 @@ def decode_step(cfg: ModelConfig, params: dict, cache: list, token: torch.Tensor
     x = _embed(params, token, compute_dtype)[:, None]
     dropless = x.shape[0] * x.shape[1] * cfg.moe.top_k if cfg.moe else None
     for kind, p, c in zip(layer_kinds(cfg), params["layers"], cache):
-        # a recurrent layer's decode is its prefill at S 1
-        if kind == "rglru":
-            x, state = _recurrent(cfg, p, x, c)
-            c.update(state)
-            continue
-        if kind == "rwkv":
-            x, state = _rwkv(cfg, p, x, c, backend)
-            c.update(state)
-            continue
-        h, _ = attn_decode(p["attn"], cfg.attn_dims(_window(cfg, kind)),
-                           _norm(cfg, p["norm1"], x), c, pos)
-        x = x + h
-        if kind == "xattn":
-            x = _cross(cfg, p, x, c["xk"].to(x.dtype), c["xv"].to(x.dtype), backend)
-        x, _ = _ffn(cfg, kind, p, x, capacity_override=dropless)
+        x = _layer_decode(cfg, kind, p, x, c, pos, backend, dropless)
     return _logits(cfg, params, x), cache
+
+
+def _layer_decode(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, c: dict,
+                  pos: int, backend, dropless, ops: LayerOps = PLAIN) -> torch.Tensor:
+    """One decoder layer of ``decode_step``: x after the layer, its cache
+    ``c`` written in place."""
+    # a recurrent layer's decode is its prefill at S 1
+    if kind in ("rglru", "rwkv"):
+        return _layer_prefill(cfg, kind, p, x, c, None, backend, ops)
+    h, _ = ops.attn_decode(p["attn"], cfg.attn_dims(_window(cfg, kind)),
+                           _norm(cfg, p["norm1"], x), c, pos)
+    x = x + h
+    if kind == "xattn":
+        x = _cross(cfg, p, x, c["xk"].to(x.dtype), c["xv"].to(x.dtype), backend)
+    return _ffn(cfg, kind, p, x, capacity_override=dropless, ops=ops)[0]

@@ -68,11 +68,14 @@ def global_norm(tree) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, grads, state: dict,
-                 param_dtype=torch.bfloat16):
+                 param_dtype=torch.bfloat16, gnorm: Optional[torch.Tensor] = None):
     """Returns ``(new_working_params, new_state, metrics)``; the inputs are
-    left as they were."""
+    left as they were. ``gnorm`` (default: ``global_norm(grads)``) is the
+    norm the clip reads: a sharded step passes the norm of the whole
+    gradient while ``grads`` holds the shards on one device."""
     count = state["count"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     if cfg.grad_clip is not None:
         scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
         grads = tree_map(lambda g: g.to(torch.float32) * scale, grads)

@@ -52,7 +52,12 @@ def test_port_files_exist():
               "src/repro_torch/core/moe_balance.py", "src/repro_torch/models/moe.py",
               "src/repro_torch/models/rglru.py", "src/repro_torch/lazyexports.py",
               "src/repro_torch/models/rwkv6.py", "src/repro_torch/launch/steps.py",
-              "src/repro_torch/launch/train.py"):
+              "src/repro_torch/launch/train.py", "src/repro_torch/launch/mesh.py",
+              "src/repro_torch/launch/dryrun.py", "src/repro_torch/sharding/partition.py",
+              "src/repro_torch/sharding/hints.py", "src/repro_torch/sharding/collectives.py",
+              "src/repro_torch/sharding/pipeline.py", "src/repro_torch/sharding/spmd.py",
+              "src/repro_torch/roofline/__init__.py",
+              "src/repro_torch/roofline/analysis.py"):
         assert f in names
     for src in ("spmm_balanced.cu", "flash_attention.cu"):
         assert (REPO / "src/repro_torch/kernels/csrc" / src).exists()
@@ -75,7 +80,11 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
             "repro_torch.data, repro_torch.models.moe, repro_torch.core.moe_balance, "
             "repro_torch.models.rglru, repro_torch.lazyexports, "
             "repro_torch.models.rwkv6, repro_torch.launch.steps, "
-            "repro_torch.launch.train; "
+            "repro_torch.launch.train, repro_torch.launch.mesh, "
+            "repro_torch.launch.dryrun, repro_torch.sharding.partition, "
+            "repro_torch.sharding.hints, repro_torch.sharding.collectives, "
+            "repro_torch.sharding.pipeline, repro_torch.sharding.spmd, "
+            "repro_torch.roofline; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "assert not bad, bad; "
             "from repro_torch.kernels import _build; "
@@ -146,3 +155,15 @@ def test_entry_points_default_to_the_card(monkeypatch):
                     steps.make_decode_step):
         with pytest.raises(RuntimeError):
             factory(cfg)
+
+    from repro_torch.launch import mesh as tmesh
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(ValueError):
+        tmesh.make_local_mesh()  # every card: there is none
+    with pytest.raises(RuntimeError):
+        train.main(["--reduced", "--steps", "1", "--model-axis", "2"])
+    # the production meshes live on the meta device and need no card
+    assert tmesh.make_production_mesh().size == 256
+    assert {str(d) for row in tmesh.make_production_mesh(multi_pod=True).devices
+            for col in row for d in col} == {"meta"}
