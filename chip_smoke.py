@@ -18,7 +18,11 @@ Builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    63, 65, 129, 1000; Sq < Sk with windows; every D; GQA groups 1, 2, 7 and
    10), and with Sq > Sk (cross-attention), where only the rows that see a
    key are compared: causal rows before the first key are defined by no
-   version.
+   version. bf16 at D 256 runs the wgmma kernel
+   (``flash_attention_wgmma.cu``), everything else the mma.sync kernel;
+   each D 256 case is also called twice and must give the same bits, and in
+   bf16 each of its output rows is held to ``ATTN_BF16_ROW_TOL`` of the
+   row's RMS, as phase 5 holds the prefill shape.
 2. Serves 3 batches of 4 requests on the full-width ``reddit`` graph
    (232,965 nodes, 602 features, hidden 128, 41 classes) through the port's
    GCN path — ``registry.get_executor`` → ``ScheduleExecutor.forward_batch``
@@ -179,8 +183,13 @@ Builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    vocab 256,000; 14.2 GB of f32 weights) with phase 4's prompts,
    ``max_seq`` 2080 and 32 new tokens: 8 flash launches, all in the
    prefill; decode at positions 2048–2078 wraps the local layers' ring of
-   2048 slots. Times the flash kernel at D 256 (B 4, S 2048, H 10, Hkv 1,
-   causal, window 2048) in f32 and in bf16 beside its plain version and
+   2048 slots. Then one prefill of the same prompts in bf16
+   (``transformer.prefill``, ``compute_dtype`` bf16) with the wgmma kernel's
+   launch count reset just before and read just after: its 8 local layers
+   run the wgmma kernel (the f32 prefill's logits beside it, reported).
+   Times the flash kernel at D 256 (B 4, S 2048, H 10, Hkv 1, causal,
+   window 2048) in f32 (mma.sync, 3xTF32) and the wgmma kernel in bf16,
+   each beside its plain version, its bound and
    ``scaled_dot_product_attention``.
 13. The same for rwkv6-3b (``rwkv`` layers: TimeMix with the chunked wkv
    scan, ChannelMix) at full width and depth (32 layers, d_model 2560, 40
@@ -250,7 +259,19 @@ Builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    logs of collectives; the error against the f32 engine is reported). (d)
    The dry-run's
    ``qwen2-0.5b train_4k`` and ``gcn-reddit`` cells on the 16 × 16
-   production mesh (meta device), printed.
+   production mesh (meta device), printed. (e) granite-moe-3b-a800m at full
+   width and depth through ``spmd.prefill`` on phase 4's prompts (f32),
+   routing every MoE layer over the whole batch, against the single
+   device's ``transformer.prefill``: the logits at the LM tolerance, and
+   kept/routed on both sides; 32 × 4 flash launches. Then layer by layer,
+   teacher-forced (two f32 paths part at near ties, and a flipped choice
+   changes later layers' inputs): the data positions' routings joined in
+   order against ``moe.route`` on one device over the same joined tokens:
+   expert sets may differ only at a near tie of the k-th and (k+1)-th
+   probabilities (1e-5), a keep only in an expert whose arrivals those
+   changed (phase 10's rule); where no set differs, every (token, expert)
+   choice is kept on both sides or on neither (a near tie inside a token's
+   top k may order its choices differently, which moves no arrival rank).
 
 Float32 matmuls and cuDNN run without TF32 (both flags are set False), so
 every float32 product is full float32. Tolerances, each scaled by
@@ -260,8 +281,9 @@ LM logits 2e-3, its decode-vs-forward tolerance.
 
 Prints the SpMM kernels' registers and spills (``-Xptxas -v``) and the
 window kernel's lane mapping per kdim, the flash kernel's registers, spills,
-shared bytes and SASS ``HMMA`` count per instantiation (``flash_registers``;
-it fails if one spills or issues no ``HMMA``), a ``{"kernels": [...]}``
+shared bytes and SASS ``HMMA`` (mma.sync) or ``HGMMA`` (wgmma) count per
+instantiation (``flash_registers``; it fails if one spills or issues
+neither), a ``{"kernels": [...]}``
 line, a ``{"serving": ...}`` line, a ``{"lm_serving": ...}`` line, the
 window kernel's all-gathers-miss bound per kdim, the flash kernel's bounds
 (``flash_bounds``), an ``{"engine_serving": ...}`` line, an
@@ -272,8 +294,9 @@ carry their launches per sharded ``forward_batch``), a
 ``{"moe_serving": ...}`` line (the kernels line names phase 10's flash
 entries ``flash_attention@<arch>``), ``{"whisper_serving": ...}`` and
 ``{"recurrentgemma_serving": ...}`` lines (phases 11 and 12; their flash
-entries ``flash_attention@whisper-tiny`` and
-``flash_attention@recurrentgemma-2b``), ``{"rwkv_serving": ...}`` and
+entries ``flash_attention@whisper-tiny``,
+``flash_attention@recurrentgemma-2b`` and
+``flash_attention_wgmma@recurrentgemma-2b``), ``{"rwkv_serving": ...}`` and
 ``{"lm_training": ...}`` lines (phases 13 and 14; the latter's flash entry
 ``flash_attention@lm-training``), a ``{"mesh_steps": ...}`` line (phase 15;
 its kernels entries ``spmm_balanced@mesh``, ``spmm_epilogue@mesh`` and
@@ -2106,12 +2129,22 @@ def phase_attention_small(dev):
                                                  causal=causal, window=window)
                 if got.dtype != dtype:
                     raise AssertionError(f"flash_attention {shape}: {got.dtype} out")
+                if d == 256 and not torch.equal(
+                        got, tfa.flash_attention(q, k, v, causal=causal, window=window)):
+                    raise AssertionError(f"flash_attention {shape} causal={causal} "
+                                         f"window={window} {dtype}: two calls differ")
                 got, gold = got[:, rows], gold[:, rows]
                 err = float((got.float() - gold).abs().max())
                 if not err <= attn_tol(gold, dtype):
                     raise AssertionError(
                         f"flash_attention {shape} causal={causal} window={window} "
                         f"{dtype}: max |err| {err} > {attn_tol(gold, dtype)}")
+                if d == 256 and dtype == torch.bfloat16 and not (
+                        attn_row_err(got, gold) <= ATTN_BF16_ROW_TOL):
+                    raise AssertionError(
+                        f"flash_attention {shape} causal={causal} window={window} bf16: "
+                        f"a row's RMS error is {attn_row_err(got, gold)} of its RMS > "
+                        f"{ATTN_BF16_ROW_TOL}")
                 if dtype == torch.float32:
                     max_err = max(max_err, err)
                 cases += 1
@@ -2278,10 +2311,16 @@ def flash_timing(dev, shape, causal=True, window=None, dtype=None):
 
     gold = tfa.flash_attention_plain(q.float(), k.float(), v.float(), causal=causal,
                                      window=window)
-    err = float((kernel().float() - gold).abs().max())
+    out = kernel()
+    err = float((out.float() - gold).abs().max())
     if not err <= attn_tol(gold, dtype):
         raise AssertionError(f"flash_attention {shape} causal={causal} window={window} "
                              f"{dtype}: max |err| {err} > {attn_tol(gold, dtype)}")
+    row_err = attn_row_err(out, gold)
+    if dtype == torch.bfloat16 and not row_err <= ATTN_BF16_ROW_TOL:
+        raise AssertionError(f"flash_attention {shape} bf16: a row's RMS error is "
+                             f"{row_err} of its RMS > {ATTN_BF16_ROW_TOL}")
+    del out
     lib_diff = float((sdpa().float() - gold).abs().max())
     del gold
     ms = [timed_ms(kernel, 20)]
@@ -2294,7 +2333,8 @@ def flash_timing(dev, shape, causal=True, window=None, dtype=None):
                 / PEAK_BYTES_PER_S * 1e3)
     ops_ms = (3 * flops / PEAK_TF32_FLOPS if dtype == torch.float32  # three passes
               else flops / PEAK_BF16_FLOPS) * 1e3
-    return {"max_abs_err": err, "ms": float(np.mean(ms)), "plain_ms": plain_ms,
+    return {"max_abs_err": err, "max_row_rel_err": row_err, "ms": float(np.mean(ms)),
+            "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": float(np.mean(lib_ms)), "library_max_abs_diff": lib_diff,
@@ -2366,10 +2406,11 @@ def moe_split(fn):
 
 class RouteLog:
     """Records ``moe.route``'s expert ids and keep masks, call by call, while
-    active (``moe_forward`` looks ``route`` up in its module)."""
+    active (``moe_forward`` looks ``route`` up in its module); with
+    ``inputs``, also each call's router weight and tokens."""
 
-    def __init__(self):
-        self.calls = []
+    def __init__(self, inputs=False):
+        self.calls, self.routings, self.inputs, self._keep_inputs = [], [], [], inputs
 
     def __enter__(self):
         from repro_torch.models import moe
@@ -2379,6 +2420,9 @@ class RouteLog:
         def route(*args, **kw):
             r = self._route(*args, **kw)
             self.calls.append((r.expert_ids, r.keep))
+            self.routings.append(r)
+            if self._keep_inputs:
+                self.inputs.append((args[0]["router"], args[2]))
             return r
 
         moe.route = route
@@ -2821,9 +2865,9 @@ def phase_whisper(dev):
 
 def phase_recurrentgemma(dev):
     """recurrentgemma-2b at full width and depth; see the module docstring's
-    phase 12. Returns the ``recurrentgemma_serving`` record and the flash
-    kernel's ``flash_attention@recurrentgemma-2b`` entry (D 256), with its
-    bf16 timing beside."""
+    phase 12. Returns the ``recurrentgemma_serving`` record and the kernels
+    line's ``flash_attention@recurrentgemma-2b`` (f32, D 256) and
+    ``flash_attention_wgmma@recurrentgemma-2b`` (bf16) entries."""
     import numpy as np
     import torch
 
@@ -2839,12 +2883,65 @@ def phase_recurrentgemma(dev):
     record.update(window=cfg.window, d_rnn=cfg.rnn_width,
                   ring_slots=min(LM_MAX_SEQ, cfg.window),
                   decode_positions=[max(LM_PROMPTS), max(LM_PROMPTS) + LM_NEW - 2])
+    record["bf16_prefill"], wgmma_launches = rg_bf16_prefill(dev, cfg, prompts, n_local)
     s, h, hkv, d = max(LM_PROMPTS), cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     shape = (len(LM_PROMPTS), s, s, h, hkv, d)
     entry = flash_entry(dev, cfg.name, shape, launches, window=cfg.window,
                         per=" (one per local layer's prefill, none in decode)")
-    entry["bf16"] = flash_timing(dev, shape, True, cfg.window, torch.bfloat16)
-    return record, entry
+    from repro_torch.kernels import flash_attention_cuda as tfa
+
+    wgmma = {"name": f"flash_attention_wgmma@{cfg.name}", "route": "cuda",
+             "source": tfa.WGMMA_SOURCE, "replaces": tfa.REPLACES,
+             "launches": wgmma_launches}
+    wgmma.update(flash_timing(dev, shape, True, cfg.window, torch.bfloat16))
+    wgmma["per"] = (f"one call at B {shape[0]}, Sq {s}, Sk {s}, H {h}, Hkv {hkv}, D {d}, "
+                    f"causal, window {cfg.window}, bf16; launches counted over one bf16 "
+                    "prefill of phase 4's prompts (one per local layer); bound_ms is the "
+                    "bf16 tensor-core bound")
+    return record, [entry, wgmma]
+
+
+def rg_bf16_prefill(dev, cfg, prompts, n_local):
+    """One prefill of ``prompts`` in bf16 on seeded f32 weights, with the
+    wgmma kernel's launch count reset just before and read just after (it
+    must be one per local layer, and the mma.sync kernel's none); its last
+    logits finite, and their distance from the f32 prefill's reported.
+    Returns the record and the launch count."""
+    import torch
+
+    from repro_torch.kernels import flash_attention_cuda as tfa
+    from repro_torch.models import transformer as tr
+
+    params = tr.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    plen = max(len(p) for p in prompts)
+    tokens = torch.zeros((len(prompts), plen), dtype=torch.long)
+    for i, p in enumerate(prompts):  # right-aligned, as ServeEngine.run
+        tokens[i, plen - len(p):] = torch.tensor(p)
+    batch = {"tokens": tokens.to(dev)}
+    with torch.no_grad():
+        tfa.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, _ = tr.prefill(cfg, params, batch, LM_MAX_SEQ, compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(tfa.LAUNCHES)
+        gold, _ = tr.prefill(cfg, params, batch, LM_MAX_SEQ, compute_dtype=torch.float32)
+    if launches != {"flash_attention": 0, "flash_attention_wgmma": n_local}:
+        raise AssertionError(f"the bf16 prefill launched {launches}; expected "
+                             f"{n_local} wgmma launches and no other")
+    if got.shape != gold.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"the bf16 prefill's logits {tuple(got.shape)} are not "
+                             "finite logits of the f32 prefill's shape")
+    diff = (got.float() - gold).abs()
+    record = {"prefill_ms_host_clock": ms, "wgmma_launches": n_local,
+              "max_abs_diff_vs_f32": float(diff.max()),
+              "f32_logit_scale": float(gold.abs().max()),
+              "argmax_agreement": float((got.float().argmax(-1) == gold.argmax(-1))
+                                        .float().mean())}
+    del params, got, gold
+    torch.cuda.empty_cache()
+    return record, launches["flash_attention_wgmma"]
 
 
 def wkv_timing(dev, cfg):
@@ -3612,6 +3709,104 @@ def mesh_serve(dev, mesh):
     return record
 
 
+def mesh_moe(dev, mesh):
+    """15e: granite-moe-3b-a800m's prefill on the mesh, each MoE layer
+    routing the whole batch, against the single device's; see the module
+    docstring's phase 15."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention_cuda as tfa
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tr
+    from repro_torch.sharding import spmd
+
+    cfg = configs.get_config(MOE_ARCH)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in LM_PROMPTS]
+    plen = max(len(p) for p in prompts)
+    tokens = torch.zeros((len(prompts), plen), dtype=torch.long)
+    for i, p in enumerate(prompts):  # right-aligned, as ServeEngine.run
+        tokens[i, plen - len(p):] = torch.tensor(p)
+    batch = {"tokens": tokens.to(dev)}
+    params = tr.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    f32, ms = torch.float32, {}
+    runs = {}
+    for side in ("one_device", "mesh"):
+        tfa.reset_launches()
+        with torch.no_grad(), RouteLog(inputs=side == "mesh") as log:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if side == "mesh":
+                logits, cache = spmd.prefill(cfg, mesh, params, batch, LM_MAX_SEQ,
+                                             compute_dtype=f32)
+            else:
+                logits, cache = tr.prefill(cfg, params, batch, LM_MAX_SEQ, compute_dtype=f32)
+            torch.cuda.synchronize()
+            ms[side] = (time.perf_counter() - t0) * 1e3
+        runs[side] = (logits, log, tfa.LAUNCHES["flash_attention"])
+        del cache
+    gold, one, one_launches = runs["one_device"]
+    got, parts, mesh_launches = runs["mesh"]
+    tol_lm = LM_TOL * max(1.0, float(gold.abs().max()))
+    err = float((got - gold).abs().max())
+    if not err <= tol_lm:
+        raise AssertionError(f"{cfg.name} mesh prefill: logits max |err| {err} > {tol_lm}")
+    if one_launches != cfg.n_layers or mesh_launches != cfg.n_layers * mesh.size:
+        raise AssertionError(f"{cfg.name}: {one_launches} and {mesh_launches} flash "
+                             "launches in the single-device and mesh prefills")
+    n_layers = len(one.routings)
+    n_data = len(parts.routings) // n_layers
+    dims, k, near = cfg.moe_dims, cfg.moe.top_k, 1e-5
+    kept = {"one_device": sum(int(r.keep.sum()) for r in one.routings),
+            "mesh": sum(int(r.keep.sum()) for r in parts.routings)}
+    same_layers, exact_layers, tied_tokens, keep_moved = 0, 0, 0, 0
+    with torch.no_grad():
+        for i in range(n_layers):
+            mine = [parts.routings[d * n_layers + i] for d in range(n_data)]
+            ids = torch.cat([r.expert_ids for r in mine], dim=1)
+            keep = torch.cat([r.keep for r in mine], dim=1)
+            router = parts.inputs[i][0]
+            x = torch.cat([parts.inputs[d * n_layers + i][1] for d in range(n_data)])
+            want = moe.route({"router": router}, dims, x)  # one device, the same tokens
+            set_diff, affected, keep_diff = compare_routes(
+                (ids, keep), (want.expert_ids, want.keep), cfg.moe.n_experts)
+            if not bool(set_diff.any()):
+                # the same expert sets; their order within a token may differ at a
+                # near tie, which moves no arrival rank: compare (token, expert) keeps
+                if bool(keep_diff.any()):
+                    raise AssertionError(f"{cfg.name} layer {i}: the mesh keeps other "
+                                         "choices than one device from the same experts")
+                same_layers += 1
+                exact_layers += int(torch.equal(ids, want.expert_ids)
+                                    and torch.equal(keep, want.keep))
+                continue
+            top = want.probs.topk(k + 1, dim=-1).values
+            gap = (top[..., k - 1] - top[..., k])[set_diff]
+            if not bool((gap <= near).all()):
+                raise AssertionError(f"{cfg.name} layer {i}: expert sets differ beyond a "
+                                     f"near tie (gap {float(gap.max())})")
+            if bool((keep_diff & ~affected).any()):
+                raise AssertionError(f"{cfg.name} layer {i}: a keep differs in an expert "
+                                     "whose arrivals no differing choice changed")
+            tied_tokens += int(set_diff.sum())
+            keep_moved += int(keep_diff.sum())
+    routed = n_layers * tokens.numel() * k
+    record = {"arch": cfg.name, "prompt_lens": list(LM_PROMPTS), "dtype": "float32",
+              "prefill_ms": ms["mesh"], "single_device_prefill_ms": ms["one_device"],
+              "max_abs_err": err, "tolerance": tol_lm, "moe_layers": n_layers,
+              "data_positions": n_data, "kept_over_routed": kept["mesh"] / routed,
+              "single_device_kept_over_routed": kept["one_device"] / routed,
+              "layers_with_equal_routing": same_layers,
+              "layers_with_bit_equal_ids_and_keep": exact_layers,
+              "tokens_with_near_tie_choices": tied_tokens,
+              "keeps_moved_by_near_ties": keep_moved, "flash_launches": mesh_launches}
+    del params, runs, gold, got, one, parts
+    torch.cuda.empty_cache()
+    return record
+
+
 def mesh_dryrun() -> dict:
     """15d: the dry-run's ``MESH_DRYRUN`` cells on the 16 × 16 production
     mesh (meta device; written under ``build/``), printed."""
@@ -3651,18 +3846,23 @@ def phase_mesh_steps(dev, ds, grad_check):
     t0 = time.perf_counter()
     dry = mesh_dryrun()
     parts["dryrun_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    moe = mesh_moe(dev, mesh)
+    parts["moe_s"] = time.perf_counter() - t0
     record = {"mesh": dict(mesh.shape), "positions": [str(d) for d in mesh_of(dev, mesh.size)],
               "cards": len({str(d) for d in mesh_of(dev, mesh.size)}),
               "note": "positions that name one card run one after another: this "
                       "measures the sharded steps' cost, not scaling",
-              "gcn": gcn, "train": train, "serve": serve, "dryrun": dry, "seconds": parts}
+              "gcn": gcn, "train": train, "serve": serve, "dryrun": dry, "moe": moe,
+              "seconds": parts}
     return record, entries + [flash]
 
 
 def flash_registers() -> dict:
     """Registers and spill bytes (ptxas), dynamic shared bytes and SASS
-    ``HMMA`` instructions of each instantiation of the flash kernel; raises
-    if one spills or issues no ``HMMA``."""
+    tensor-core instructions of each instantiation of the flash kernels:
+    ``HMMA`` (mma.sync) in ``flash_attention.cu``, ``HGMMA`` (wgmma) in
+    ``flash_attention_wgmma.cu``; raises if one spills or issues none."""
     import re
     import shutil
 
@@ -3672,33 +3872,36 @@ def flash_registers() -> dict:
     from repro_torch.kernels import flash_attention_cuda as tfa
 
     def instantiation(text):
+        if "flash_attention_wgmma_kernel" in text:
+            return "bf16,256"
         m = re.search(r"flash_attention_kernelI(f|13__nv_bfloat16)Li(\d+)E", text)
         return f"{'f32' if m.group(1) == 'f' else 'bf16'},{m.group(2)}" if m else None
 
-    regs, name = {}, None
-    for line in _build.BUILD_LOGS.get("flash_attention", "").splitlines():
-        if "Compiling entry function" in line:
-            name = instantiation(line)
-            if name:
-                regs[name] = {"hmma": 0}
-            continue
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if m and name:
-            regs[name]["spill_store_bytes"] = int(m.group(1))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            regs[name]["registers"] = int(m.group(1))
+    regs = {}
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    lib = _build.library_path("flash_attention")
-    sass = subprocess.run([tool, "--dump-sass", str(lib)],
-                          check=True, capture_output=True, text=True).stdout
-    name = None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            name = instantiation(m.group(1))
-        elif name in regs and re.search(r"\bHMMA\.", line):
-            regs[name]["hmma"] += 1
+    for lib, op in (("flash_attention", "HMMA"), ("flash_attention_wgmma", "HGMMA")):
+        name = None
+        for line in _build.BUILD_LOGS.get(lib, "").splitlines():
+            if "Compiling entry function" in line:
+                name = instantiation(line)
+                if name:
+                    regs[name] = {"library": lib, "tensor_core_op": op, "count": 0}
+                continue
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and name:
+                regs[name]["spill_store_bytes"] = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                regs[name]["registers"] = int(m.group(1))
+        sass = subprocess.run([tool, "--dump-sass", str(_build.library_path(lib))],
+                              check=True, capture_output=True, text=True).stdout
+        name = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                name = instantiation(m.group(1))
+            elif name in regs and re.search(rf"\b{op}\.", line):
+                regs[name]["count"] += 1
     want = 2 * len(tfa.HEAD_DIMS)  # f32 and bf16 at every head width
     if len(regs) != want:
         raise AssertionError(
@@ -3707,8 +3910,9 @@ def flash_registers() -> dict:
         kind, d = name.split(",")
         r["shared_bytes"] = tfa.shared_bytes(
             int(d), torch.float32 if kind == "f32" else torch.bfloat16)
-        if r.get("spill_store_bytes", 0) or not r["hmma"]:
-            raise AssertionError(f"flash kernel <{name}> spills or issues no HMMA: {r}")
+        if r.get("spill_store_bytes", 0) or not r["count"]:
+            raise AssertionError(f"flash kernel <{name}> spills or issues no "
+                                 f"{r['tensor_core_op']}: {r}")
     return regs
 
 
@@ -3728,7 +3932,7 @@ def main() -> int:
     card = card_line()
 
     t0 = time.perf_counter()
-    _build.build(["spmm_balanced", "flash_attention"])
+    _build.build(["spmm_balanced", "flash_attention", "flash_attention_wgmma"])
     build_s = time.perf_counter() - t0
     for name, log in _build.BUILD_LOGS.items():
         print(f"[build] {name}.cu in {build_s:.1f} s\n{log.strip()}", file=sys.stderr)
@@ -3794,10 +3998,10 @@ def main() -> int:
     print(f"[phase 11] served {WHISPER_ARCH} in {time.perf_counter() - t0:.1f} s",
           file=sys.stderr)
     t0 = time.perf_counter()
-    rgemma, rgemma_entry = phase_recurrentgemma(dev)
+    rgemma, rgemma_entries = phase_recurrentgemma(dev)
     print(f"[phase 12] served {RG_ARCH} in {time.perf_counter() - t0:.1f} s",
           file=sys.stderr)
-    kernels.extend([whisper_entry, rgemma_entry])
+    kernels.extend([whisper_entry, *rgemma_entries])
     whisper["card"] = card
     rgemma["card"] = card
     t0 = time.perf_counter()
@@ -3821,7 +4025,7 @@ def main() -> int:
     kernels.extend(mesh_entries)
     del ds
     torch.cuda.empty_cache()
-    print(f"[phase 15] mesh steps (gcn, train, prefill/decode, dry-run) in "
+    print(f"[phase 15] mesh steps (gcn, train, prefill/decode, dry-run, MoE prefill) in "
           f"{mesh_steps['seconds']['phase']:.1f} s", file=sys.stderr)
     for entry in kernels:
         if entry["name"] in F32_SPMM:

@@ -74,19 +74,25 @@
 //   bf16 BK 64 at every D: 2 stages of K and V (256·D bytes a stage: 8 to
 //        64 KB). At D 64: Q 16, O 32, S 32 registers; ptxas gives it about
 //        160, so 3 blocks run on an SM.
-//   D 256 (recurrentgemma's local layers): one warp cannot hold a 16-row O
-//        of 256 columns beside its P·V tile (256 f32 registers a thread in
-//        f32), nor can 32-key f32 stages fit (two of 128 KB, plus Q's 64 KB).
-//        So each 16 query rows get a pair of warps (8 warps, 256 threads a
-//        block): both compute the same S over all 256 columns of Q·Kᵀ
-//        (the same instructions in the same order, so the same bits, and the
-//        same m and l), and each owns half of O's columns for P·V. The QKᵀ
-//        work is done twice: 1.5× the arithmetic of one warp a row group,
-//        bought with no exchange and no barrier inside the pair. f32: BK 16,
-//        Q in shared memory as at D 128; 2 stages of 64 KB plus Q's 64 KB =
-//        192 KB, and a thread holds O and the tile's P·V (64 registers
-//        each) as at D 128. bf16: BK 64, Q in registers (64), O 64, S 32; 2
-//        stages of 64 KB = 128 KB. One block (8 warps) runs on an SM.
+//   D 256, f32 only (recurrentgemma's local layers; bf16 at D 256 runs the
+//        wgmma kernel of flash_attention_wgmma.cu): one warp cannot hold a
+//        16-row O of 256 columns beside its P·V tile (256 f32 registers a
+//        thread), nor can 32-key f32 stages fit (two of 128 KB, plus Q's 64
+//        KB). So each 16 query rows get a pair of warps (8 warps, 256 threads
+//        a block), each owning half of O's columns for P·V. Each warp of the
+//        pair computes S's partial over its half of D (128 columns); the two
+//        partials meet in a small shared buffer behind a named barrier for
+//        the pair's 64 threads (bar.sync 1 + row group, 64), and each warp
+//        adds the other's partial to its own: f32 addition commutes, so both
+//        hold the same bits of S, and m and l stay equal. Q·Kᵀ is done once
+//        per pair (computing all of S in both warps costs 1.5× the
+//        arithmetic of one warp a row group). BK 16, Q in shared memory as at D 128; 2 stages of 64
+//        KB plus Q's 64 KB plus the 8 KB exchange = 200 KB, and a thread holds
+//        O and the tile's P·V (64 registers each) as at D 128. One block (8
+//        warps) runs on an SM. wgmma's tf32 (the route the bf16 kernel takes)
+//        would need V K-major, so a transposed copy of every V tile, and its
+//        3xTF32 hi/lo operands twice the bytes of a tile: two stages of that
+//        beside a 64 KB Q do not fit in 227 KB, so f32 stays on mma.sync.
 //   __launch_bounds__ asks for 1 block per SM: left to itself ptxas caps the
 //   registers lower, which measured slower in bf16 and at D 128.
 //
@@ -215,7 +221,10 @@ struct Geo {
   static constexpr int kVOff = (kF32 ? 2 : 1) * kTile;
   static constexpr int kStage = 2 * kVOff;
   static constexpr size_t kQBytes = kQSmem ? kBQ * D * sizeof(float) : 0;
-  static constexpr size_t kSmem = kQBytes + kStages * kStage * sizeof(T);
+  static constexpr size_t kRingBytes = kStages * kStage * sizeof(T);
+  // a pair's exchange of S partials: each warp's 16 × BK floats
+  static constexpr size_t kXBytes = kSplit > 1 ? kThreads / 32 * 16 * kBK * sizeof(float) : 0;
+  static constexpr size_t kSmem = kQBytes + kRingBytes + kXBytes;
   static constexpr int kChunks = kBK * kR / kThreads;    // K (and V) chunks a thread copies
   static_assert(kBK * kR % kThreads == 0, "a tile splits evenly over the threads");
 
@@ -237,6 +246,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
                        int h, int hkv, int causal, int window, float scale) {
   using G = Geo<T, D>;
+  static_assert(G::kF32 || G::kSplit == 1, "bf16 at D 256 runs flash_attention_wgmma.cu");
   constexpr bool kF32 = G::kF32;
   constexpr int BK = G::kBK, NB = BK / 8, ND = D / 8;
   constexpr int kThreads = G::kThreads;
@@ -244,10 +254,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   extern __shared__ __align__(16) unsigned char smem[];
   float* qsm = reinterpret_cast<float*>(smem);  // [kBQ][D] Q (D 128 f32)
   T* ring = reinterpret_cast<T*>(smem + G::kQBytes);
+  float* xbuf = reinterpret_cast<float*>(smem + G::kQBytes + G::kRingBytes);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int rg = warp / G::kSplit;         // this warp's row group
   const int c0 = warp % G::kSplit * NDW;   // its first 8-column block of O
+  // the columns of Q·Kᵀ it sums over start at column kc: a whole number of
+  // 8-chunk lines, so (as for V below) the offset adds to a swizzled index
+  constexpr int NDS = ND / G::kSplit;
+  const int kc = warp % G::kSplit * (D / G::kSplit);
   const int g = lane >> 2, t = lane & 3;
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
   const int b = blockIdx.y / h, hq = blockIdx.y % h;
@@ -373,15 +388,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
     if constexpr (kF32) {
-      const float* kh = st;
-      const float* kl = st + G::kTile;
+      const float* kh = st + kc;
+      const float* kl = st + G::kTile + kc;
 #pragma unroll
-      for (int ks = 0; ks < ND; ++ks) {
+      for (int ks = 0; ks < NDS; ++ks) {
         uint32_t ah[4], al[4];
         if constexpr (G::kQSmem) {
 #pragma unroll
           for (int half = 0; half < 2; ++half) {  // rows g and g+8
-            const int i = G::at(16 * rg + g + 8 * half, 8 * ks + 2 * t);
+            const int i = G::at(16 * rg + g + 8 * half, 8 * ks + 2 * t) + kc;
             const float2 x = *reinterpret_cast<const float2*>(qsm + i);
             split(x.x, ah[half], al[half]);
             split(x.y, ah[half + 2], al[half + 2]);
@@ -405,6 +420,26 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
           bl[nb][1] = __float_as_uint(l2.y);
         }
         mma_3xtf32<NB>(s, ah, al, bh, bl);
+      }
+      if constexpr (G::kSplit > 1) {
+        // the pair's partials over its two halves of D: each warp publishes
+        // its own, waits for its partner's and adds it (own + other in one
+        // warp, other + own in the other: the same bits)
+        float4* mine = reinterpret_cast<float4*>(xbuf) + warp * NB * 32 + lane;
+        const float4* other = reinterpret_cast<const float4*>(xbuf) +
+                              (warp ^ 1) * NB * 32 + lane;
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+          mine[nb * 32] = make_float4(s[nb][0], s[nb][1], s[nb][2], s[nb][3]);
+        asm volatile("bar.sync %0, 64;\n" ::"r"(1 + rg) : "memory");
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) {
+          const float4 x = other[nb * 32];
+          s[nb][0] += x.x;
+          s[nb][1] += x.y;
+          s[nb][2] += x.z;
+          s[nb][3] += x.w;
+        }
       }
     } else {
       const T* ks_ = st;
@@ -575,7 +610,10 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int b, int sq
     case 32: return launch<T, 32>(q, k, v, o, b, sq, sk, h, hkv, causal, window, scale, stream);
     case 64: return launch<T, 64>(q, k, v, o, b, sq, sk, h, hkv, causal, window, scale, stream);
     case 128: return launch<T, 128>(q, k, v, o, b, sq, sk, h, hkv, causal, window, scale, stream);
-    case 256: return launch<T, 256>(q, k, v, o, b, sq, sk, h, hkv, causal, window, scale, stream);
+    case 256:  // bf16 at D 256 is flash_attention_wgmma.cu's
+      if constexpr (std::is_same<T, float>::value)
+        return launch<T, 256>(q, k, v, o, b, sq, sk, h, hkv, causal, window, scale, stream);
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }
@@ -587,7 +625,7 @@ int smem_bytes(int d) {
     case 32: return (int)Geo<T, 32>::kSmem;
     case 64: return (int)Geo<T, 64>::kSmem;
     case 128: return (int)Geo<T, 128>::kSmem;
-    case 256: return (int)Geo<T, 256>::kSmem;
+    case 256: return std::is_same<T, float>::value ? (int)Geo<float, 256>::kSmem : -1;
     default: return -1;
   }
 }

@@ -3,16 +3,21 @@
 ``flash_attention(q, k, v)`` computes multi-head attention with an online
 softmax for q ``[B, Sq, H, D]`` and k, v ``[B, Sk, Hkv, D]`` (GQA when
 Hkv < H), optionally causal and/or windowed, with queries aligned at
-``Sk - Sq``, through the hand-written CUDA kernel in
-``csrc/flash_attention.cu`` (whose header note gives the design and bound).
-The statistics are f32 and the output takes q's dtype.
+``Sk - Sq``, through a hand-written CUDA kernel: bf16 at head width 256 in
+``csrc/flash_attention_wgmma.cu`` (``wgmma`` and TMA), every other head
+width and dtype in ``csrc/flash_attention.cu`` (``mma.sync``); each
+source's header note gives its design and bound, and ``kernel_library``
+picks between them. The statistics are f32 and the output takes q's
+dtype.
 
 The wrapper takes the kernel's plain PyTorch version
 (``flash_attention_plain``) only for tensors on the CPU. CUDA tensors launch
 the kernel or raise, through the operator ``flash_attention_op``
 (``repro_torch::flash_attention``), whose meta version lets a program on
-the meta device count the kernel's work (``launch.dryrun``). ``LAUNCHES`` counts launches, so a run can show that
-its path went through the kernel.
+the meta device count the kernel's work (``launch.dryrun``). ``LAUNCHES``
+counts each kernel's launches (``flash_attention``: the mma.sync kernel;
+``flash_attention_wgmma``: bf16 at D 256), so a run can show that its path
+went through them.
 
 Gradients: when grad is enabled and an input requires it, the call goes
 through ``_FlashAttention``, a ``torch.autograd.Function`` whose forward is
@@ -35,14 +40,16 @@ from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 
-#: the CUDA source of the kernel, relative to the repository root
+#: the CUDA sources of the kernel, relative to the repository root: the
+#: ``mma.sync`` kernel, and the ``wgmma`` kernel of bf16 at head width 256
 SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+WGMMA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu"
 
 #: the TPU kernel it replaces
 REPLACES = "src/repro/kernels/flash_attention.py:28"
 
-#: kernel launches since the last ``reset_launches()``
-LAUNCHES = {"flash_attention": 0}
+#: each kernel's launches since the last ``reset_launches()``, by library
+LAUNCHES = {"flash_attention": 0, "flash_attention_wgmma": 0}
 
 #: head widths the kernel is compiled for
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -56,13 +63,29 @@ _MAX_GRID_Y = 65535
 
 
 def reset_launches() -> None:
-    LAUNCHES["flash_attention"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def kernel_library(d: int, dtype: torch.dtype) -> str:
+    """The library (``csrc/<name>.cu``) whose kernel runs head width ``d`` in
+    ``dtype``: bf16 at D 256 runs the ``wgmma`` kernel, everything else the
+    ``mma.sync`` one."""
+    if d == 256 and dtype == torch.bfloat16:
+        return "flash_attention_wgmma"
+    return "flash_attention"
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention")
+def _lib(name: str = "flash_attention") -> ctypes.CDLL:
+    lib = _build.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
+    if name == "flash_attention_wgmma":
+        lib.awb_flash_attention_wgmma.argtypes = [p] * 4 + [i] * 8 + [ctypes.c_float, p]
+        lib.awb_flash_attention_wgmma.restype = i
+        lib.awb_flash_attention_wgmma_smem.argtypes = []
+        lib.awb_flash_attention_wgmma_smem.restype = i
+        return lib
     lib.awb_flash_attention.argtypes = [p] * 4 + [i] * 8 + [ctypes.c_float, i, p]
     lib.awb_flash_attention.restype = i
     lib.awb_flash_attention_smem.argtypes = [i, i]
@@ -72,7 +95,9 @@ def _lib() -> ctypes.CDLL:
 
 def shared_bytes(d: int, dtype: torch.dtype) -> int:
     """Dynamic shared memory of one block of the kernel at head width ``d``
-    (builds the kernel on first use)."""
+    in ``dtype`` (builds the kernel on first use)."""
+    if kernel_library(d, dtype) == "flash_attention_wgmma":
+        return _lib("flash_attention_wgmma").awb_flash_attention_wgmma_smem()
     return _lib().awb_flash_attention_smem(d, int(dtype == torch.bfloat16))
 
 
@@ -125,8 +150,8 @@ def _forward(q, k, v, causal, window, scale) -> torch.Tensor:
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous [B, S, H, D]")
     if q.is_cuda and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("q, k and v must start on a 16-byte boundary: the kernel "
-                         "copies them with 16-byte cp.async")
+        raise ValueError("q, k and v must start on a 16-byte boundary: the kernels "
+                         "copy them with 16-byte cp.async or TMA")
     b, _, h, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"head width {d}; the kernel is built for {HEAD_DIMS}")
@@ -149,16 +174,19 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    name = kernel_library(d, q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        LAUNCHES["flash_attention"] += 1
-        err = _lib().awb_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk,
-            h, hkv, d, int(causal), window, scale,
-            int(q.dtype == torch.bfloat16), stream,
-        )
+        LAUNCHES[name] += 1
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk,
+                h, hkv, d, int(causal), window, scale)
+        if name == "flash_attention_wgmma":
+            err = _lib(name).awb_flash_attention_wgmma(*args, stream)
+        else:
+            err = _lib(name).awb_flash_attention(*args, int(q.dtype == torch.bfloat16),
+                                                 stream)
     if err:
-        raise RuntimeError(f"awb_flash_attention launch failed: cudaError {err}")
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
     return out
 
 

@@ -211,7 +211,11 @@ def mesh_value_and_grad(cfg: tr.ModelConfig, mesh: Mesh, params: dict, batch: di
     positions, each running ``transformer.model_forward`` on the weights it
     gathers (``spmd.Run``), their losses weighted by their share of the
     rows and summed in order, their gradients summed onto the blocks in
-    order. ``log`` gets position (0, 0)'s collectives. Runs under the
+    order. A MoE model routes the whole batch as one device does: a
+    forward without gradients first routes every data position in order
+    (range ``train.routing``), so that ranks, capacity and drops are the
+    batch's and each position's aux loss, weighted by its share, sums to
+    the batch's. ``log`` gets position (0, 0)'s collectives. Runs under the
     profiler ranges of ``value_and_grad``."""
     params = spmd.shard_tree(params, partition.param_pspecs(cfg, params, mesh), mesh)
     flat = flatten_with_paths(params)
@@ -222,6 +226,13 @@ def mesh_value_and_grad(cfg: tr.ModelConfig, mesh: Mesh, params: dict, batch: di
     n_rows = sum(hi - lo for _, (lo, hi), _ in shards)
     run = spmd.Run(cfg, mesh, params, train=True, log=log)
     dev0, loss = spmd.first_device(mesh), None
+    if cfg.moe is not None and len(shards) > 1:
+        run.route_globally(len(shards), n_rows * shards[0][2]["tokens"].shape[1])
+        with torch.no_grad(), spmd.mesh_hints(mesh), profile_range("train.routing"):
+            for d, _, rows in shards:
+                tr.model_forward(cfg, run.at(d), rows, compute_dtype=compute_dtype,
+                                 ops=run.ops(d))
+        run.uses, run.moe_settled = [], True
     with spmd.mesh_hints(mesh):
         for d, (lo, hi), rows in shards:
             run.uses = []

@@ -16,7 +16,10 @@ baseline).
 
 ``route`` holds the routing decisions (gate weights, expert ids, slot,
 arrival rank, capacity ``keep`` mask, aux loss); ``moe_forward`` calls it,
-then dispatches, computes and combines. The JAX package's sharding hints
+then ``moe_apply`` dispatches, computes and combines. A ``RoutePrior``
+routes one part of a larger batch as the whole batch routes it (a data
+position's rows on a mesh, ``sharding.spmd``): ranks continue after the
+earlier parts' choices, capacity is the whole batch's. The JAX package's sharding hints
 are no-ops without a mesh and have no counterpart here. Where the two
 packages could silently part:
 
@@ -85,6 +88,22 @@ class Routing(NamedTuple):
     aux: torch.Tensor         # () f32 load-balance loss
 
 
+class RoutePrior(NamedTuple):
+    """Where this call's tokens stand in a larger batch routed in flattened
+    token order (the reference's ``n_groups = 1`` over the whole batch):
+    the earlier tokens' choices per expert and per slot, and the batch's
+    token count. Arrival ranks start after the earlier choices, the AWB
+    replica follows the batch-wide rank, capacity is the batch's, and
+    ``ce`` (the batch's share of choices per expert), where given, stands
+    for this call's own in the aux loss, which is then this call's share
+    of the batch's (E·Σ me_e·ce_e is linear in the router means me)."""
+
+    expert_counts: torch.Tensor   # [E] int64
+    slot_counts: torch.Tensor     # [n_slots] int64
+    n_tokens: int
+    ce: Optional[torch.Tensor] = None  # [E] f32
+
+
 def identity_placement(dims: MoEDims, device=None) -> PlacementTables:
     e = dims.n_experts
     dev = resolve_device(device)
@@ -147,16 +166,20 @@ def rank_within(ids: torch.Tensor) -> torch.Tensor:
 
 def route(p: dict, dims: MoEDims, x: torch.Tensor,
           placement: Optional[PlacementTables] = None,
-          capacity_override: Optional[int] = None) -> Routing:
+          capacity_override: Optional[int] = None,
+          prior: Optional[RoutePrior] = None) -> Routing:
     """Routing of x [B, S, d]: softmax router in f32, top-k, renormalised
     gate weights, the aux loss (Switch: E·Σ f_e·p_e), then each choice's
     slot (replica ``rank % r_e`` of its expert) and arrival rank there,
-    and which choices fit the capacity."""
+    and which choices fit the capacity. With ``prior`` the tokens are a
+    later part of a larger batch (one dispatch group)."""
     b, s, d = x.shape
     t = b * s
     e, k = dims.n_experts, dims.top_k
     n_slots = dims.n_slots or e
     g = dims.n_groups if t % max(dims.n_groups, 1) == 0 else 1
+    if prior is not None and g != 1:
+        raise ValueError("a RoutePrior routes one dispatch group (n_groups 1)")
     tg = t // g
     with common.profile_range("moe.router"):
         xt = x.reshape(g, tg, d)
@@ -168,9 +191,12 @@ def route(p: dict, dims: MoEDims, x: torch.Tensor,
         gate_w, expert_ids = ranked[..., :k], order[..., :k]           # [G,Tg,K]
         gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
         me = probs.mean(dim=(0, 1))
-        ce = torch.zeros(e, device=x.device).index_add_(
-            0, expert_ids.reshape(-1),
-            torch.full((t * k,), 1.0 / (t * k), device=x.device))
+        if prior is not None and prior.ce is not None:
+            ce = prior.ce
+        else:
+            ce = torch.zeros(e, device=x.device).index_add_(
+                0, expert_ids.reshape(-1),
+                torch.full((t * k,), 1.0 / (t * k), device=x.device))
         aux = e * torch.sum(me * ce)
     with common.profile_range("moe.dispatch"):
         flat_e = expert_ids.reshape(g, tg * k)                          # [G,TKg]
@@ -178,12 +204,17 @@ def route(p: dict, dims: MoEDims, x: torch.Tensor,
         if placement is None:  # the static layout: slot e hosts expert e
             flat_slot = flat_e
         else:
+            if prior is not None:
+                pos = pos + prior.expert_counts[flat_e]
             # evil-expert chunking: replica r = arrival rank % n_replicas
             replica = pos % placement.n_replicas[flat_e]
             max_rep = placement.slot_of.shape[1]
             flat_slot = placement.slot_of[flat_e, replica.clamp(max=max_rep - 1)]
             pos = rank_within(flat_slot)  # rank within the *slot*
-    cap = capacity_override or max(1, int(dims.capacity_factor * tg * k / n_slots))
+        if prior is not None:
+            pos = pos + prior.slot_counts[flat_slot]
+    n_tok = tg if prior is None else prior.n_tokens
+    cap = capacity_override or max(1, int(dims.capacity_factor * n_tok * k / n_slots))
     return Routing(probs, gate_w, expert_ids, flat_slot, pos, pos < cap, cap, aux)
 
 
@@ -203,23 +234,39 @@ def _slot_weights(p: dict, dims: MoEDims, placement: Optional[PlacementTables],
 
 def moe_forward(p: dict, dims: MoEDims, x: torch.Tensor,
                 placement: Optional[PlacementTables] = None,
-                capacity_override: Optional[int] = None) -> tuple:
+                capacity_override: Optional[int] = None,
+                prior: Optional[RoutePrior] = None) -> tuple:
     """x: [B, S, d] -> (out, aux_loss). Capacity-dropped tokens pass through
     the residual (standard Switch behaviour). ``capacity_override`` forces a
-    per-slot capacity (decode uses T·K: dropless)."""
+    per-slot capacity (decode uses T·K: dropless); ``prior`` routes x as a
+    later part of a larger batch (``RoutePrior``)."""
+    r = route(p, dims, x, placement, capacity_override, prior)
+    return moe_apply(p, dims, x, r, placement, prior), r.aux
+
+
+def moe_apply(p: dict, dims: MoEDims, x: torch.Tensor, r: Routing,
+              placement: Optional[PlacementTables] = None,
+              prior: Optional[RoutePrior] = None) -> torch.Tensor:
+    """Dispatch x [B, S, d] by the routing ``r``, run the experts, combine.
+    Under a ``prior`` the buffers hold only this call's choices: a slot's
+    row is the choice's rank less the earlier parts' choices there, and a
+    slot holds at most min(capacity, this call's choices) rows."""
     b, s, d = x.shape
     k = dims.top_k
     n_slots = dims.n_slots or dims.n_experts
-    r = route(p, dims, x, placement, capacity_override)
     g, tgk = r.slot.shape
     tg = tgk // k
     act = common.activation_fn(dims.activation)
     with common.profile_range("moe.dispatch"):
+        if prior is None:
+            rows, local = r.capacity, r.pos
+        else:
+            rows, local = min(r.capacity, tgk), r.pos - prior.slot_counts[r.slot]
         xt = x.reshape(g, tg, d)
         gi = torch.arange(g, device=x.device)[:, None].expand(g, tgk)
-        pos_c = r.pos.clamp(max=r.capacity - 1)
+        pos_c = local.clamp(max=rows - 1)
         src = xt.repeat_interleave(k, dim=1) * r.keep[..., None].to(x.dtype)
-        buf = torch.zeros((g, n_slots, r.capacity, d), dtype=x.dtype, device=x.device)
+        buf = torch.zeros((g, n_slots, rows, d), dtype=x.dtype, device=x.device)
         buf.index_put_((gi, r.slot, pos_c), src, accumulate=True)
     with common.profile_range("moe.experts"):
         w = _slot_weights(p, dims, placement, x.dtype)
@@ -235,4 +282,4 @@ def moe_forward(p: dict, dims: MoEDims, x: torch.Tensor,
         gathered = gathered * (r.gate_w.reshape(g, tgk)[..., None].to(x.dtype)
                                * r.keep[..., None].to(x.dtype))
         out = gathered.reshape(g, tg, k, d).sum(dim=2)
-    return out.reshape(b, s, d), r.aux
+    return out.reshape(b, s, d)

@@ -309,16 +309,18 @@ def jax_layout(cfg: ModelConfig, params: dict) -> dict:
 
 @dataclasses.dataclass(frozen=True)
 class LayerOps:
-    """The calls a layer makes for its self-attention and its dense MLP,
-    with the signatures of ``attention.attn_forward``, ``attn_prefill``,
-    ``attn_decode`` and ``mlp.mlp_forward``. ``PLAIN`` is the model's own; a
-    sharded step (``sharding.spmd.Run.ops``) passes versions that split them
-    over a mesh's model positions and read ``p["attn"]``/``p["mlp"]`` as it
-    gathered them."""
+    """The calls a layer makes for its self-attention, its dense MLP and its
+    MoE, with the signatures of ``attention.attn_forward``, ``attn_prefill``,
+    ``attn_decode``, ``mlp.mlp_forward`` and ``moe.moe_forward``. ``PLAIN``
+    is the model's own; a sharded step (``sharding.spmd.Run.ops``) passes
+    versions that split the attention and the MLP over a mesh's model
+    positions, reading ``p["attn"]``/``p["mlp"]`` as it gathered them, and
+    route each data position's MoE tokens as part of the whole batch."""
     attn_forward: Callable = attn_forward
     attn_prefill: Callable = attn_prefill
     attn_decode: Callable = attn_decode
     mlp_forward: Callable = mlp_mod.mlp_forward
+    moe_forward: Callable = moe_mod.moe_forward
 
 
 PLAIN = LayerOps()
@@ -334,8 +336,8 @@ def _ffn(cfg, kind, p, x, capacity_override=None, ops: LayerOps = PLAIN) -> tupl
     loss or None)."""
     h = _norm(cfg, p["norm3" if kind == "xattn" else "norm2"], x)
     if kind == "attn_moe":
-        out, aux = moe_mod.moe_forward(p["moe"], cfg.moe_dims, h,
-                                       capacity_override=capacity_override)
+        out, aux = ops.moe_forward(p["moe"], cfg.moe_dims, h,
+                                   capacity_override=capacity_override)
         return x + out, aux
     return x + ops.mlp_forward(p["mlp"], h, cfg.activation, cfg.glu), None
 

@@ -27,9 +27,15 @@ attention and dense MLP calls:
 * With ``kv_seq_shard`` (``hints.get_flag``), decode splits each cache's
   sequence over the model positions: each attends over its slice, and the
   softmax partials (max, sum, output) are combined in position order.
-* A MoE layer routes each data position's tokens apart, so its expert
-  capacity, and with it which tokens drop, is counted per data position's
-  rows: MoE models do not match the one-device step on a mesh.
+* A MoE layer routes the whole batch as one device does (the reference's
+  one dispatch group): the data positions route in order, each choice's
+  arrival rank continuing after the choices of the positions before it
+  (their per-expert and per-slot counts, all-gathered once a MoE layer),
+  capacity counted from the whole batch's tokens, and the AWB replica
+  taken from the batch-wide rank (``moe.RoutePrior``). Training first
+  routes every data position without gradients, so that each position's
+  aux loss reads the whole batch's share of choices per expert; the
+  differentiated pass then routes as that pass did.
 
 Tensors move between positions with ``.to()``; positions that name one
 device share its memory and run one after another. ``Run.log`` records the
@@ -50,6 +56,7 @@ from typing import Optional
 import torch
 
 from repro_torch.launch.mesh import Mesh, dp_axes
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as tr
 from repro_torch.models.attention import (_project_qkv, attn_decode, attn_forward,
                                           attn_prefill)
@@ -148,6 +155,13 @@ def gather_record(shape, dtype, spec, mesh, region, pos) -> Optional[dict]:
     return None
 
 
+def moe_counts_record(dims, n_data: int) -> dict:
+    """The all-gather of every data position's per-expert and per-slot
+    choice counts (int64) that a MoE layer's global routing reads."""
+    return {"kind": "all-gather", "n": n_data,
+            "bytes": n_data * (dims.n_experts + (dims.n_slots or dims.n_experts)) * 8}
+
+
 def reduction_record(spec, mesh, nbytes: int, n: int) -> dict:
     """The reduction of ``n`` data positions' gradients of a block: a
     reduce-scatter where the spec splits the leaf over the data axes, else
@@ -163,6 +177,15 @@ def reduction_record(spec, mesh, nbytes: int, n: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
+class _LayerMoE(dict):
+    """A MoE layer's gathered weights, which know their layer: the key of
+    the routing state ``Run`` carries from one data position to the next."""
+
+    def __init__(self, weights: dict, layer: int):
+        super().__init__(weights)
+        self.layer = layer
+
+
 class _Gathered(Sequence):
     """A layer stack whose i-th layer is gathered (``Run.layer_weights``)
     when it is read."""
@@ -176,7 +199,7 @@ class _Gathered(Sequence):
 
     def __getitem__(self, i):
         return self.run.layer_weights(self.kinds[i], self.layers[i], self.d,
-                                      split_attn=i not in self.whole_attn)
+                                      split_attn=i not in self.whole_attn, layer=i)
 
 
 class Run:
@@ -192,6 +215,19 @@ class Run:
         self.uses: list = []  # (Sharded, region, leaf) of the current data position
         self.reached: dict = {}  # id(Sharded) -> data positions adding into (0, 0)'s block
         self.log: list = [] if log is None else log
+        # MoE routing over the whole batch (``route_globally``)
+        self.moe_data = 1
+        self.moe_tokens: Optional[int] = None
+        self.moe_priors: dict = {}  # (d, layer) -> moe.RoutePrior
+        self.moe_counts: dict = {}  # layer -> (expert, slot) counts of positions routed
+        self.moe_settled = False    # every position routed: the aux reads the batch's ce
+
+    def route_globally(self, n_data: int, n_tokens: int) -> None:
+        """Route the MoE layers as one batch of ``n_tokens`` tokens over
+        ``n_data`` data positions, taken in order (one position routes as
+        it is)."""
+        if n_data > 1:
+            self.moe_data, self.moe_tokens = n_data, n_tokens
 
     def dev(self, d: int, m: int) -> torch.device:
         return self.mesh.device(position(self.mesh, d, m))
@@ -216,10 +252,11 @@ class Run:
     def whole(self, tree, d: int):
         return tree_map(lambda sh: self.weight(sh, (), d, 0), tree)
 
-    def layer_weights(self, kind: str, p_sh: dict, d: int, split_attn=True) -> dict:
+    def layer_weights(self, kind: str, p_sh: dict, d: int, split_attn=True,
+                      layer: int = 0) -> dict:
         """The layer's weights as ``ops`` read them: a list with one dict
         per model position for a split attention or MLP, whole on (d, 0)
-        otherwise."""
+        otherwise (a MoE's as ``_LayerMoE`` of layer ``layer``)."""
         cfg, lw = self.cfg, {}
         for name, sub in p_sh.items():
             dims = cfg.attn_dims(tr._window(cfg, kind))
@@ -232,6 +269,8 @@ class Run:
                 lw[name] = [{k: self.weight(sub[k], mlp_regions(cfg.d_ff, self.tp, m)[k],
                                             d, m) for k in sub}
                             for m in range(self.tp)]
+            elif name == "moe":
+                lw[name] = _LayerMoE(self.whole(sub, d), layer)
             else:
                 lw[name] = self.whole(sub, d)
         return lw
@@ -258,7 +297,8 @@ class Run:
         return tr.LayerOps(attn_forward=functools.partial(self._attn_forward, d),
                            attn_prefill=functools.partial(self._attn_cached, d, rows, None),
                            attn_decode=functools.partial(self._attn_decode, d, rows),
-                           mlp_forward=functools.partial(self._mlp_forward, d))
+                           mlp_forward=functools.partial(self._mlp_forward, d),
+                           moe_forward=functools.partial(self._moe_forward, d))
 
     def spread(self, h: torch.Tensor, d: int) -> list:
         """h on each model position of data position d; in training the
@@ -293,6 +333,38 @@ class Run:
             return mlp_forward(w, h, activation, glu)
         return self.partial_sum([mlp_forward(w[m], hm, activation, glu)
                                   for m, hm in enumerate(self.spread(h, d))], d)
+
+    def _moe_forward(self, d, p, dims, h, capacity_override=None) -> tuple:
+        """``moe.moe_forward`` of data position d's tokens as a part of the
+        whole batch: the first time (d, layer) routes, it reads the counts
+        of the positions before it (an all-gather of every position's
+        counts, logged) and adds its own; later routings of it (remat's
+        recompute, the differentiated pass after the routing pass) reuse
+        that prior, and once every position has routed the aux loss reads
+        the batch's ce."""
+        if self.moe_tokens is None:
+            return moe_mod.moe_forward(p, dims, h, capacity_override=capacity_override)
+        e, n_slots = dims.n_experts, dims.n_slots or dims.n_experts
+        key, first = (d, p.layer), (d, p.layer) not in self.moe_priors
+        if first:
+            counts = self.moe_counts.get(p.layer)
+            if counts is None:
+                counts = (torch.zeros(e, dtype=torch.long, device=h.device),
+                          torch.zeros(n_slots, dtype=torch.long, device=h.device))
+            self.moe_priors[key] = moe_mod.RoutePrior(counts[0].to(h.device),
+                                                      counts[1].to(h.device),
+                                                      self.moe_tokens)
+            self.note(d, 0, moe_counts_record(dims, self.moe_data))
+        prior = self.moe_priors[key]
+        if self.moe_settled:
+            ce = self.moe_counts[p.layer][0].to(h.device, torch.float32)
+            prior = prior._replace(ce=ce / (self.moe_tokens * dims.top_k))
+        r = moe_mod.route(p, dims, h, None, capacity_override, prior)
+        if first:
+            self.moe_counts[p.layer] = (
+                prior.expert_counts + torch.bincount(r.expert_ids.reshape(-1), minlength=e),
+                prior.slot_counts + torch.bincount(r.slot.reshape(-1), minlength=n_slots))
+        return moe_mod.moe_apply(p, dims, h, r, None, prior), r.aux
 
     def _attn_cached(self, d, rows, pos, w, dims, h, c, backend=None) -> tuple:
         """``attn_prefill`` (``pos`` None) or ``attn_decode`` with ``c``'s
@@ -475,9 +547,11 @@ def prefill(cfg, mesh: Mesh, params: dict, batch: dict, max_seq: int,
     n_rows = torch.as_tensor(batch["tokens"]).shape[0]
     cache = init_cache(cfg, mesh, n_rows, max_seq, compute_dtype, False)
     run = Run(cfg, mesh, params, train=False, log=log)
+    shards = data_rows(batch_sharded(batch, mesh), mesh)
+    run.route_globally(len(shards), math.prod(torch.as_tensor(batch["tokens"]).shape))
     outs = []
     with torch.no_grad(), mesh_hints(mesh):
-        for d, rows, local in data_rows(batch_sharded(batch, mesh), mesh):
+        for d, rows, local in shards:
             p, ops = run.at(d), run.ops(d, rows)
             x = tr._embed(p, local["tokens"], compute_dtype)
             enc_out = tr._encode(cfg, p, local, compute_dtype, None, ops)
@@ -501,13 +575,16 @@ def decode_step(cfg, mesh: Mesh, params: dict, cache: list, token, pos: int,
     cache = shard_tree(cache, partition.cache_pspecs(cfg, cache, mesh, stacked=False,
                                                      seq_shard=seq_shard_kv), mesh)
     run = Run(cfg, mesh, params, train=False, log=log)
+    shards = data_rows(batch_sharded({"token": token}, mesh), mesh)
+    n_rows = torch.as_tensor(token).shape[0]
+    run.route_globally(len(shards), n_rows)
+    dropless = n_rows * cfg.moe.top_k if cfg.moe else None  # the whole batch's
     outs = []
     with torch.no_grad(), mesh_hints(mesh, kv_seq_shard=seq_shard_kv):
         whole = [i for i, c in enumerate(cache) if "k" in c and _seq_sharded(c["k"])]
-        for d, rows, local in data_rows(batch_sharded({"token": token}, mesh), mesh):
+        for d, rows, local in shards:
             p, ops = run.at(d, whole, encoder=False), run.ops(d, rows)
             x = tr._embed(p, local["token"], compute_dtype)[:, None]
-            dropless = x.shape[0] * cfg.moe.top_k if cfg.moe else None
             for kind, lw, c_sh in zip(tr.layer_kinds(cfg), p["layers"], cache):
                 c = run.layer_cache(c_sh, d, rows)
                 x = tr._layer_decode(cfg, kind, lw, x, c, pos, None, dropless, ops)
@@ -562,9 +639,13 @@ def program_collectives(cfg, mesh: Mesh, kind: str, batch: int, seq: int,
                         seq_shard: bool = False, compute_dtype=torch.bfloat16,
                         param_dtype=torch.bfloat16) -> list:
     """The collectives position (0, 0) takes part in over one step of
-    ``kind`` (train, prefill, decode at position ``seq - 1``) at ``batch`` ×
-    ``seq``, as ``Run`` logs them, walked from the specs without running
-    anything: the dry-run's wire bytes. In a train step each partial sum
+    ``kind`` (train, prefill, decode at position ``seq - 1``; ``forward``,
+    a forward without caches or gradients) at ``batch`` × ``seq``, as
+    ``Run`` logs them, walked from the specs without running anything: the
+    dry-run's wire bytes. Each MoE layer's routing over several data
+    positions all-gathers their choice counts; a train step of a MoE model
+    first routes in a forward pass (``steps.mesh_value_and_grad``), whose
+    collectives come first. In a train step each partial sum
     comes again in the backward (its input's gradient), and the gradients'
     reductions follow. Remat's recompute sums the attention's partials
     again but not the MLP's: it stops once it has remade what the backward
@@ -575,8 +656,12 @@ def program_collectives(cfg, mesh: Mesh, kind: str, batch: int, seq: int,
     pspecs = partition.param_pspecs(cfg, specs, mesh)
     _, dp_size = partition._dp_of(mesh)
     rows = batch // dp_size if batch % dp_size == 0 else batch
+    n_data = batch // rows
     pos0 = position(mesh, 0, 0)
     log = []
+    if kind == "train" and cfg.moe is not None and n_data > 1:  # the routing pass
+        log.extend(program_collectives(cfg, mesh, "forward", batch, seq, seq_shard,
+                                       compute_dtype, param_dtype))
 
     def move(shape, dtype, spec, region):
         rec = gather_record(shape, dtype, spec, mesh, region, pos0)
@@ -597,7 +682,7 @@ def program_collectives(cfg, mesh: Mesh, kind: str, batch: int, seq: int,
         for k, leaf in sub.items():
             move(leaf.shape, param_dtype, ssub[k], regions[k])
 
-    serve = kind != "train"
+    serve = kind in ("prefill", "decode")
     caches = tr.init_cache(cfg, batch, seq, compute_dtype, device="meta") if serve else None
     cspecs = (partition.cache_pspecs(cfg, caches, mesh, stacked=False, seq_shard=seq_shard)
               if serve else None)
@@ -642,6 +727,8 @@ def program_collectives(cfg, mesh: Mesh, kind: str, batch: int, seq: int,
                 io(c, cs, ("xk", "xv"), (r,))
                 if not decode:
                     io(c, cs, ("xk", "xv"), (r,))
+        if lkind == "attn_moe" and n_data > 1 and kind != "train":
+            log.append(moe_counts_record(cfg.moe_dims, n_data))
         if lkind in ATTN_KINDS and tp_attn:
             partial(s, recomputed=remat)
         if "mlp" in p and mlp_splits(cfg.d_ff, tp):

@@ -177,6 +177,49 @@ def test_wrapper_checks_operands_on_the_cpu():
     assert tfa.LAUNCHES["flash_attention"] == 0  # the CPU never launches
 
 
+@pytest.mark.parametrize("d", tfa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_the_kernel_entry_is_chosen_by_head_width_and_dtype(d, dtype, monkeypatch):
+    """bf16 at head width 256 launches the wgmma library's entry
+    (``flash_attention_wgmma.cu``), every other (D, dtype) the mma.sync
+    library's, as before. ``kernel_library`` makes the choice and the
+    operator follows it; here its libraries, the device guard and the
+    stream are stand-ins (no nvcc, no card), so only the choice, the
+    arguments and the launch counts are checked."""
+    import contextlib
+    import types
+
+    want = ("flash_attention_wgmma" if (d, dtype) == (256, torch.bfloat16)
+            else "flash_attention")
+    assert tfa.kernel_library(d, dtype) == want
+    calls = []
+
+    class Lib:
+        def awb_flash_attention(self, *args):
+            calls.append(("flash_attention", args))
+            return 0
+
+        def awb_flash_attention_wgmma(self, *args):
+            calls.append(("flash_attention_wgmma", args))
+            return 0
+
+    monkeypatch.setattr(tfa, "_lib", lambda name="flash_attention": Lib())
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=7))
+    q = torch.zeros((2, 5, 4, d), dtype=dtype)
+    k = torch.zeros((2, 9, 2, d), dtype=dtype)
+    tfa.reset_launches()
+    tfa.flash_attention_op(q, k, k, True, 3, 0.5)
+    assert [name for name, _ in calls] == [want]
+    args = calls[0][1]
+    assert args[4:13] == (2, 5, 9, 4, 2, d, 1, 3, 0.5) and args[-1] == 7
+    if want == "flash_attention":
+        assert args[13] == int(dtype == torch.bfloat16)
+    assert tfa.LAUNCHES == {name: int(name == want) for name in tfa.LAUNCHES}
+    tfa.reset_launches()
+
+
 def _tf32(x: np.ndarray) -> np.ndarray:
     """``cvt.rna.tf32.f32``: the f32 bit pattern rounded to 10 mantissa bits,
     ties away from zero (adding half of the dropped range to the magnitude)."""

@@ -3,7 +3,10 @@ on the card. Every test here needs a CUDA device and skips without one; run
 them on the card with
 ``python -m pytest -m cuda tests/test_torch_attention_cuda.py``. This file
 imports no JAX, so it runs where only PyTorch is installed. Tolerances are
-the JAX kernel tests': 2e-5·max(1, |gold|max) in f32, 5e-2 in bf16."""
+the JAX kernel tests': 2e-5·max(1, |gold|max) in f32, 5e-2 in bf16. bf16 at
+head width 256 runs the wgmma kernel (``flash_attention_wgmma.cu``), every
+other case the mma.sync kernel; each test that counts launches counts the
+kernel ``flash_attention_cuda.kernel_library`` names for its case."""
 import numpy as np
 import pytest
 
@@ -86,10 +89,12 @@ def _tol(gold, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_version(dev, shape, causal, window, dtype):
     q, k, v = _qkv(dev, sum(shape), *shape, dtype=dtype)
-    before = tfa.LAUNCHES["flash_attention"]
+    name = tfa.kernel_library(shape[-1], dtype)
+    assert (name == "flash_attention_wgmma") == (shape[-1] == 256 and dtype == torch.bfloat16)
+    before = dict(tfa.LAUNCHES)
     got = tfa.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert tfa.LAUNCHES["flash_attention"] == before + 1
+    assert tfa.LAUNCHES == dict(before, **{name: before[name] + 1})
     assert got.dtype == dtype and got.shape == q.shape and got.is_cuda
     gold = tfa.flash_attention_plain(q.float(), k.float(), v.float(), causal=causal,
                                      window=window)
@@ -241,33 +246,40 @@ def test_wrapper_rejects_bad_operands(dev):
                                    (1, 130, 130, 10, 1, 256), (1, 70, 33, 4, 2, 16)],
                          ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("causal,window", [(True, None), (False, None), (True, 24)])
-def test_grads_through_the_kernel_match_the_plain_version(dev, shape, causal, window):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grads_through_the_kernel_match_the_plain_version(dev, shape, causal, window,
+                                                          dtype):
     """``_FlashAttention`` (the kernel's forward, the VJP in torch ops)
-    against autograd through the plain version, in f32: the forward at the
-    kernel tolerance, the grads at 1e-4·max (the VJP reads the kernel's
-    output). Causal rows that see no key (Sq > Sk) carry no output
-    gradient."""
-    q, k, v = _qkv(dev, sum(shape), *shape)
+    against autograd through the plain version on the same inputs: in f32
+    the forward at the kernel tolerance and the grads at 1e-4·max (the VJP
+    reads the kernel's output); in bf16 (D 256: the wgmma kernel) the
+    forward at bf16's 5e-2 and the grads at 5e-2·max(1, |grad|max), the
+    output's bf16 rounding reaching them through rowsum(dO∘O). Causal rows
+    that see no key (Sq > Sk) carry no output gradient."""
+    q, k, v = _qkv(dev, sum(shape), *shape, dtype=dtype)
     dout = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(1),
-                       device=dev)
+                       device=dev).to(dtype)
     b, sq, sk = shape[:3]
     if causal:
         dout[:, :max(0, sq - sk)] = 0.0
     grads = []
+    name = tfa.kernel_library(shape[-1], dtype)
     for fn in (tfa.flash_attention, tfa.flash_attention_plain):
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        before = tfa.LAUNCHES["flash_attention"]
+        before = tfa.LAUNCHES[name]
         out = fn(*leaves, causal=causal, window=window)
-        launched = tfa.LAUNCHES["flash_attention"] - before
+        launched = tfa.LAUNCHES[name] - before
         out.backward(dout)
         grads.append((out.detach(), *(t.grad for t in leaves)))
         assert launched == (1 if fn is tfa.flash_attention else 0)
     keep = _seen_rows(sq, sk, causal, window)
     (out, *got), (gold_out, *want) = grads
-    assert float((out[:, keep] - gold_out[:, keep]).abs().max()) <= _tol(gold_out,
-                                                                         torch.float32)
+    out, gold_out = out.float(), gold_out.float()
+    assert float((out[:, keep] - gold_out[:, keep]).abs().max()) <= _tol(gold_out, dtype)
+    rel = 1e-4 if dtype == torch.float32 else 5e-2
     for g, w in zip(got, want):
-        assert float((g - w).abs().max()) <= 1e-4 * max(1.0, float(w.abs().max()))
+        g, w = g.float(), w.float()
+        assert float((g - w).abs().max()) <= rel * max(1.0, float(w.abs().max()))
 
 
 def test_a_remat_train_step_launches_twice_a_layer(dev):

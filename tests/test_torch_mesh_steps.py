@@ -12,7 +12,9 @@ leaf's largest entry); prefill and decode, with and without the
 sequence-sharded cache, against the single-device ``prefill`` and
 ``decode_step`` at the LM tolerance, 2e-3·max(1, |gold|max). Repeated runs
 are bit-equal, each position holds only its shard, and the collectives the
-steps log are those ``spmd.program_collectives`` walks."""
+steps log are those ``spmd.program_collectives`` walks. A MoE model routes
+the whole batch on the mesh as on one device: every layer's capacity
+``keep`` mask and slot ids equal the single device's, drops included."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -30,6 +32,7 @@ from repro_torch.graphs import synth as tsynth  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.launch.mesh import Mesh, make_local_mesh  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer as tr  # noqa: E402
 from repro_torch.roofline import analysis as tra  # noqa: E402
 from repro_torch.sharding import partition, spmd  # noqa: E402
@@ -291,7 +294,8 @@ def test_mesh_prefill_and_decode_steps_run_spmd_in_bf16():
     assert torch.equal(logits, want) and decode.log
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "recurrentgemma-2b", "whisper-tiny"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "recurrentgemma-2b", "whisper-tiny",
+                                  "granite-moe-3b-a800m"])
 def test_prefill_and_decode_log_what_the_walk_counts(arch):
     """The collectives the steps log at position (0, 0) are those
     ``program_collectives`` walks for a prompt that fills the cache and a
@@ -320,7 +324,8 @@ def test_prefill_and_decode_log_what_the_walk_counts(arch):
 
 
 @pytest.mark.parametrize("remat", [False, True])
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "recurrentgemma-2b", "whisper-tiny"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "recurrentgemma-2b", "whisper-tiny",
+                                  "granite-moe-3b-a800m"])
 def test_train_step_logs_what_the_walk_counts(arch, remat):
     """The training walk — the dry-run's wire bytes for a train cell —
     against what ``mesh_value_and_grad`` logs: the gathers, each partial
@@ -337,6 +342,105 @@ def test_train_step_logs_what_the_walk_counts(arch, remat):
     got = tra.collective_bytes(log)
     assert got == tra.collective_bytes(want)
     assert got.get("reduce-scatter_count", 0) + got.get("all-reduce_count", 0) > 0
+
+
+# ---------------------------------------------------------------------------
+# MoE over the global batch
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def routes(monkeypatch):
+    """Every ``moe.route`` call's ``Routing``, in call order."""
+    calls = []
+    route = moe_mod.route
+
+    def recorded(*a, **k):
+        calls.append(route(*a, **k))
+        return calls[-1]
+
+    monkeypatch.setattr(moe_mod, "route", recorded)
+    return calls
+
+
+def _moe_mesh(shape):
+    data, model = shape
+    return make_local_mesh(model_axis=model, devices=["cpu"] * (data * model))
+
+
+def _same_routing(mesh_calls, one, n_data):
+    """The mesh's routings, position-major (each data position routes
+    every layer), joined per layer in data order: ``keep`` and ``slot``
+    equal to the single device's routing of that layer."""
+    n_layers = len(one)
+    assert len(mesh_calls) == n_data * n_layers
+    for i, want in enumerate(one):
+        parts = [mesh_calls[d * n_layers + i] for d in range(n_data)]
+        for name in ("keep", "slot", "pos"):
+            got = torch.cat([getattr(r, name) for r in parts], dim=-1)
+            assert np.array_equal(got.numpy(), getattr(want, name).numpy()), (i, name)
+        assert all(r.capacity == want.capacity for r in parts)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("shape", [(2, 2), (4, 2)], ids=["2x2", "4x2"])
+def test_moe_train_step_routes_the_global_batch(shape, remat, routes):
+    """Reduced granite-moe, f32: capacity drops tokens on one device, and
+    the mesh drops the same ones (the routing pass and the differentiated
+    pass alike); the loss, aux included, and the gradients match the
+    single device's."""
+    cfg, params, batch = _lm("granite-moe-3b-a800m", remat=remat)
+    f32 = torch.float32
+    loss, grads = steps.value_and_grad(cfg, params, batch, compute_dtype=f32)
+    n_layers = len(tr.layer_kinds(cfg))
+    one = list(routes[:n_layers])
+    assert sum(int((~r.keep).sum()) for r in one) > 0  # capacity drops on one device
+    routes.clear()
+    mloss, mgrads = steps.mesh_value_and_grad(cfg, _moe_mesh(shape), params, batch,
+                                              compute_dtype=f32)
+    assert abs(float(mloss) - float(loss)) <= LOSS_REL * abs(float(loss))
+    got = flatten_with_paths(spmd.unshard_tree(mgrads, "cpu"))
+    for key, want in flatten_with_paths(grads).items():
+        tol = GRAD_REL * float(want.abs().max())
+        assert float((got[key] - want).abs().max()) <= tol, key
+    n_data = shape[0]
+    _same_routing(routes[:n_data * n_layers], one, n_data)          # the routing pass
+    # the differentiated pass: each position's forward (then remat's recompute)
+    per_pos = n_layers * (2 if remat else 1)
+    assert len(routes) == n_data * (n_layers + per_pos)
+    diff = routes[n_data * n_layers:]
+    _same_routing([diff[d * per_pos + i] for d in range(n_data) for i in range(n_layers)],
+                  one, n_data)
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (4, 2)], ids=["2x2", "4x2"])
+def test_moe_prefill_and_decode_route_the_global_batch(shape, routes):
+    """``spmd.prefill`` of reduced granite-moe routes as the single
+    device's prefill (the same drops) and its logits match; decode stays
+    dropless and matches too."""
+    cfg, params, batch = _lm("granite-moe-3b-a800m", b=8, s=12)
+    f32, max_seq, mesh = torch.float32, 16, _moe_mesh(shape)
+    inputs = {"tokens": batch["tokens"]}
+    gold, cache1 = tr.prefill(cfg, params, inputs, max_seq, compute_dtype=f32)
+    one = list(routes)
+    assert sum(int((~r.keep).sum()) for r in one) > 0
+    routes.clear()
+    logits, cache2 = spmd.prefill(cfg, mesh, params, inputs, max_seq, compute_dtype=f32)
+    assert float((logits - gold).abs().max()) <= LM_TOL * max(1.0, float(gold.abs().max()))
+    _same_routing(list(routes), one, shape[0])
+    rng = np.random.default_rng(3)
+    for i in range(2):
+        routes.clear()
+        token = torch.as_tensor(rng.integers(0, cfg.vocab, (8,)), dtype=torch.int32)
+        gold, cache1 = tr.decode_step(cfg, params, cache1, token, 12 + i, compute_dtype=f32)
+        one = list(routes)
+        routes.clear()
+        logits, cache2 = spmd.decode_step(cfg, mesh, params, cache2, token, 12 + i,
+                                          compute_dtype=f32)
+        _same_routing(list(routes), one, shape[0])
+        assert all(bool(r.keep.all()) for r in routes)
+        assert float((logits - gold).abs().max()) <= LM_TOL * max(
+            1.0, float(gold.abs().max())), i
 
 
 def test_a_device_is_the_one_device_step():

@@ -268,6 +268,45 @@ def test_route_decisions_equal_a_loop(case):
     assert np.array_equal(r.keep.numpy(), r.pos.numpy() < cap)
 
 
+@pytest.mark.parametrize("placed", [False, True], ids=["static", "awb"])
+def test_route_in_parts_with_a_prior_is_the_whole_batch(placed):
+    """Rows routed in parts, each with the counts of the parts before it
+    (``RoutePrior``, as a mesh's data positions route): ranks, slots (the
+    AWB replica from the batch-wide rank), capacity and drops equal the
+    whole batch's; the outputs match it, and the parts' aux losses read
+    with the batch's ce and weighted by their share sum to its aux."""
+    dims = _dims(n_slots=6, capacity_factor=0.7) if placed else _dims(capacity_factor=0.7)
+    _, tp, x = _layer(dims, seed=5, b=4, s=12)
+    placement = None
+    if placed:
+        placement = tmoe.tables_from_placement(tbal.balance_placement(
+            np.array([50.0, 1, 1, 9]), 2, slots_per_device=3), device="cpu")
+    xt = torch.from_numpy(x)
+    whole = tmoe.route(tp, dims, xt, placement)
+    want_out, want_aux = tmoe.moe_forward(tp, dims, xt, placement)
+    assert int((~whole.keep).sum()) > 0
+    n_slots = dims.n_slots or dims.n_experts
+    ce = torch.bincount(whole.expert_ids.reshape(-1), minlength=dims.n_experts).float() / (
+        whole.expert_ids.numel())
+    counts = (torch.zeros(dims.n_experts, dtype=torch.long),
+              torch.zeros(n_slots, dtype=torch.long))
+    parts, outs, aux = [], [], 0.0
+    for lo, hi in ((0, 1), (1, 3), (3, 4)):
+        prior = tmoe.RoutePrior(*counts, n_tokens=x.shape[0] * x.shape[1], ce=ce)
+        r = tmoe.route(tp, dims, xt[lo:hi], placement, prior=prior)
+        outs.append(tmoe.moe_apply(tp, dims, xt[lo:hi], r, placement, prior))
+        aux += float(r.aux) * (hi - lo) / x.shape[0]
+        counts = (counts[0] + torch.bincount(r.expert_ids.reshape(-1), minlength=dims.n_experts),
+                  counts[1] + torch.bincount(r.slot.reshape(-1), minlength=n_slots))
+        parts.append(r)
+    for name in ("slot", "pos", "keep"):
+        got = torch.cat([getattr(r, name) for r in parts], dim=-1)
+        assert np.array_equal(got.numpy(), getattr(whole, name).numpy()), name
+    assert all(r.capacity == whole.capacity for r in parts)
+    assert float((torch.cat(outs) - want_out).abs().max()) <= ATOL
+    assert abs(aux - float(want_aux)) <= ATOL
+
+
 def test_rank_within_is_exact_on_long_runs():
     ids = np.random.default_rng(0).integers(0, 5, (3, 4000))
     got = tmoe.rank_within(torch.from_numpy(ids)).numpy()
