@@ -72,10 +72,17 @@ Builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    width on the report's own operand, and at kdim 512. Both lie within the
    JAX package's loose 0.1 of the f32 product, the result differs from
    the f32 kernel's (at the probe by the report's ``bf16_max_err``
-   exactly), and two calls are bit-equal. Times it beside the f32 kernel
-   (f32, bf16-acc, bf16-acc, f32), its plain version and
+   exactly), two calls are bit-equal, and an f32 B and the same values in
+   bf16 give the same bits. First the card's exhaustive check that the
+   kernels' packed ``mul.rn.bf16x2``/``add.rn.bf16x2`` round as the plain
+   versions' f32 sequence over all 2^32 pairs of bf16 patterns (0
+   mismatches for each). Times the window (its cast of B to bf16 included)
+   beside the f32 kernel (f32, bf16-acc, bf16-acc, f32), the cast alone,
+   the window on the bf16 operand under ``BF16ACC_LANE_SWEEP``'s lane
+   mappings beside the one it picks, its plain version and
    ``torch.sparse.mm`` on bf16 operands (a yardstick that accumulates
-   differently).
+   differently); the epilogue beside the f32 one, its plain version and
+   ``index_add_`` of the kept bf16 partials into a bf16 output.
 7. Streams edge updates into reddit through ``GCNServingEngine.update_graph``
    (launch counts reset just before and read after the whole phase), on an
    engine that warm-starts from phase 6's store (zero sweeps, zero builds).
@@ -279,7 +286,9 @@ max(1, |gold|max): SpMM 1e-4 (f32) and 3e-2 (bf16), attention 2e-5 (f32)
 and 5e-2 (bf16, unscaled) — the JAX package's kernel test tolerances — and
 LM logits 2e-3, its decode-vs-forward tolerance.
 
-Prints the SpMM kernels' registers and spills (``-Xptxas -v``) and the
+Prints the SpMM kernels' registers and spills (``-Xptxas -v``; for the
+bf16-accumulate kernels their SASS count of packed bf16 multiplies and adds;
+it fails if one spills or a bf16-accumulate kernel issues none) and the
 window kernel's lane mapping per kdim, the flash kernel's registers, spills,
 shared bytes and SASS ``HMMA`` (mma.sync) or ``HGMMA`` (wgmma) count per
 instantiation (``flash_registers``; it fails if one spills or issues
@@ -337,8 +346,13 @@ REPLACES = {
 #: the f32 SpMM kernels phase 2 drives; the bf16-accumulate variant runs in
 #: phase 6 (the sweep's error report)
 F32_SPMM = ("spmm_balanced", "spmm_epilogue")
-#: the bf16-accumulate variant's wide check beside the tuning probe's width
+#: the bf16-accumulate variant's wide check beside the tuning probe's width,
+#: and the window's lane mappings timed beside the one it picks: (vec,
+#: lanes a step, vectors a lane) on reddit's bf16 B (1-line panels, one
+#: pass, 4-line panels)
 BF16ACC_WIDE = 512
+BF16ACC_LANE_SWEEP = {128: [(8, 8, 1), (8, 16, 1)],
+                      512: [(8, 8, 1), (8, 16, 2), (8, 8, 4)]}
 #: phase 6: the engine's batch bound, the requests' deadline, and the graph
 #: the eviction round trip adds beside reddit
 ENGINE_MAX_BATCH, ENGINE_DEADLINE_S, EVICT_GRAPH = 4, 0.25, "pubmed"
@@ -624,14 +638,15 @@ def phase_serve(dev):
     return ds, ex, launches, serving
 
 
-def bytes_window(steps, n, kdim, elt, all_miss=False) -> int:
+def bytes_window(steps, n, kdim, elt, all_miss=False, part_elt=4) -> int:
     """Bytes the window kernel must move: each live slot's 8-byte record,
     the per-step pointers, B once (or once per live slot when no gather
-    hits in L2), and the f32 partials written once."""
+    hits in L2), and the partials written once (f32, or bf16 with
+    ``part_elt=2``)."""
     n_slots = steps.slots.shape[0]
     meta = n_slots * 8 + (steps.slot_ptr.numel() + steps.part_ptr.numel()) * 4
     b_bytes = (n_slots if all_miss else n) * kdim * elt
-    return meta + b_bytes + steps.n_parts * kdim * 4
+    return meta + b_bytes + steps.n_parts * kdim * part_elt
 
 
 def schedule_geometry(sched, steps) -> dict:
@@ -659,9 +674,37 @@ def schedule_geometry(sched, steps) -> dict:
     }
 
 
-def kernel_registers() -> dict:
-    """Registers and spill bytes of each compiled SpMM kernel, from ptxas."""
+def spmm_instantiation(mangled: str):
+    """A readable name for a compiled SpMM kernel of ``spmm_balanced.cu``
+    (``spmm_step_kernel<f32,4,1>``, ``epilogue_kernel_bf16acc<bf16,8>``...),
+    or None for another symbol."""
     import re
+
+    t = re.search(r"(spmm_step_kernel|epilogue_kernel)I(f|13__nv_bfloat16)"
+                  r"Li(\d+)E(?:Li(\d+)E)?E", mangled)
+    if t:
+        dims = ",".join(g for g in t.groups()[2:] if g)
+        return f"{t.group(1)}<{'f32' if t.group(2) == 'f' else 'bf16'},{dims}>"
+    t = re.search(r"spmm_step_kernel_bf16accILi(\d+)ELi(\d+)EE", mangled)
+    if t:
+        return f"spmm_step_kernel_bf16acc<{t.group(1)},{t.group(2)}>"
+    t = re.search(r"epilogue_kernel_bf16accI(f|t)Li(\d+)EE", mangled)
+    if t:
+        return (f"epilogue_kernel_bf16acc<{'f32' if t.group(1) == 'f' else 'bf16'},"
+                f"{t.group(2)}>")
+    return "bf16_rounding_check_kernel" if "bf16_rounding_check_kernel" in mangled \
+        else None
+
+
+def kernel_registers() -> dict:
+    """Registers and spill bytes of each compiled SpMM kernel, from ptxas;
+    for the bf16-accumulate kernels also their SASS counts of packed bf16
+    arithmetic (``HMUL2``/``HADD2``/``HFMA2``, ``.BF16_V2``: ptxas issues a
+    rounded multiply or add also as an ``HFMA2`` with a -0 addend or a 1
+    factor) and of conversions (``F2F``, ``F2FP``), from ``cuobjdump -sass``. Raises if a
+    kernel spills or a bf16-accumulate kernel issues no packed bf16 op."""
+    import re
+    import shutil
 
     from repro_torch.kernels import _build
 
@@ -669,11 +712,7 @@ def kernel_registers() -> dict:
     for line in _build.BUILD_LOGS.get("spmm_balanced", "").splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            t = re.search(r"(spmm_step_kernel|epilogue_kernel)I(f|13__nv_bfloat16)"
-                          r"Li(\d+)E(?:Li(\d+)E)?Lb([01])E", m.group(1))
-            name = (f"{t.group(1)}<{'f32' if t.group(2) == 'f' else 'bf16'},"
-                    f"{','.join(g for g in t.groups()[2:4] if g)}"
-                    f"{',bf16acc' if t.group(5) == '1' else ''}>") if t else None
+            name = spmm_instantiation(m.group(1))
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and name:
@@ -681,6 +720,28 @@ def kernel_registers() -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             regs.setdefault(name, {})["registers"] = int(m.group(1))
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "--dump-sass", str(_build.library_path("spmm_balanced"))],
+                          check=True, capture_output=True, text=True).stdout
+    name = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = spmm_instantiation(m.group(1))
+            if name and "bf16acc" in name:
+                regs.setdefault(name, {}).update(packed_bf16_ops=0, conversions=0)
+            continue
+        if name not in regs or "packed_bf16_ops" not in regs[name]:
+            continue
+        if re.search(r"\bH(MUL2|ADD2|FMA2)(\.MMA)?\.BF16", line):
+            regs[name]["packed_bf16_ops"] += 1
+        if re.search(r"\bF2FP?\b|\bF2FP?\.", line):
+            regs[name]["conversions"] += 1
+    for name, r in regs.items():
+        if r.get("spill_store_bytes", 0) or (
+                "bf16acc" in name and not r.get("packed_bf16_ops")):
+            raise AssertionError(f"SpMM kernel <{name}> spills or issues no packed "
+                                 f"bf16 arithmetic: {r}")
     return regs
 
 
@@ -842,13 +903,14 @@ def phase_bf16acc(ds, winner):
     runs it: on the schedule of phase 6's sweep winner, through the twin
     executor the error report builds, on the report's probe operand (the
     tuning width, ``runner.autotune``'s seeded B); and at kdim 512 with a
-    random B. Kernel vs plain version bit for bit (``torch.equal``); both
-    vs the f32 product (0.1); the result differs from the f32 kernel's on
-    the same inputs, and at the probe the difference is the report's
-    ``bf16_max_err`` exactly; two calls bit-equal. Times in turns beside
-    the f32 kernel, the plain version and ``torch.sparse.mm`` on bf16
-    operands. Returns the two ``kernels`` entries (launches filled in from
-    phase 6)."""
+    random B. First the exhaustive rounding check (0 mismatches). Kernel vs
+    plain version bit for bit (``torch.equal``); both vs the f32 product
+    (0.1); the result differs from the f32 kernel's on the same inputs, and
+    at the probe the difference is the report's ``bf16_max_err`` exactly;
+    two calls bit-equal; an f32 B and its bf16 values give the same bits.
+    Times in turns beside the f32 kernel, under other lane mappings, the
+    plain version, ``torch.sparse.mm`` on bf16 operands and ``index_add_``.
+    Returns the two ``kernels`` entries (launches filled in from phase 6)."""
     import numpy as np
     import torch
 
@@ -856,6 +918,14 @@ def phase_bf16acc(ds, winner):
     from repro_torch.kernels import spmm_cuda
 
     cfg, sched, inv, probe_kdim, dev = winner
+    t0 = time.perf_counter()
+    mul_bad, add_bad = spmm_cuda.bf16_rounding_check(dev)
+    torch.cuda.synchronize()
+    rounding = {"pairs": 2 ** 32, "mul_mismatches": mul_bad, "add_mismatches": add_bad,
+                "seconds": time.perf_counter() - t0}
+    if mul_bad or add_bad:
+        raise AssertionError(f"packed bf16 rounding differs from the f32 sequence: "
+                             f"{rounding}")
     twins = {acc: ScheduleExecutor(sched, ktile=cfg.ktile, routing=cfg.routing,
                                    bf16_accumulate=acc, device=dev, row_unperm=inv)
              for acc in (False, True)}
@@ -865,6 +935,10 @@ def phase_bf16acc(ds, winner):
     bf16 = torch.bfloat16
     n_nnz = int((steps.slots[:, 1] != 0).sum())
     n_kept = int(steps.epi_part.numel())
+    part_row = torch.full((steps.n_parts,), -1, dtype=torch.long, device=dev)
+    part_row[steps.epi_part.long()] = torch.repeat_interleave(
+        torch.arange(m, device=dev), steps.epi_ptr.diff().long())
+    kept = part_row >= 0
     csr = ds.adj_csr
     a_csr = torch.sparse_csr_tensor(csr.indptr.long(), csr.indices.long(), csr.data,
                                     size=(m, n)).to(dev)
@@ -878,10 +952,13 @@ def phase_bf16acc(ds, winner):
                 (n, kdim)).astype(np.float32)).to(dev)
         else:
             b = torch.randn((n, kdim), generator=gen, device=dev)
+        b16 = spmm_cuda.window_operand(b, bf16)
         gold = torch.sparse.mm(a_csr, b)
         part_k = spmm_cuda.spmm_window(steps, b, acc_dtype=bf16)
         part_p = spmm_cuda.spmm_window_plain(steps, b, acc_dtype=bf16)
         err_w = same(f"bf16acc window k={kdim}", part_k, part_p)
+        same(f"bf16acc window k={kdim} on bf16 B",
+             spmm_cuda.spmm_window(steps, b16, acc_dtype=bf16), part_p)
         epi_k = spmm_cuda.spmm_epilogue(steps, part_p, torch.float32, unperm,
                                         acc_dtype=bf16)
         epi_p = spmm_cuda.spmm_epilogue_plain(steps, part_p, torch.float32, unperm,
@@ -903,21 +980,37 @@ def phase_bf16acc(ds, winner):
             raise AssertionError(f"the report's bf16_max_err {cfg.bf16_max_err} is not "
                                  f"the twins' difference {err_f32} on its operand")
         del part_k, epi_k, epi_p, got, plain
-        # f32 and bf16-accumulate windows in turns: f32, bf16, bf16, f32
+        # f32 and bf16-accumulate windows in turns: f32, bf16, bf16, f32; the
+        # bf16-accumulate window's time holds its cast of B
         f32_ms = [timed_ms(lambda: spmm_cuda.spmm_window(steps, b), 10)]
         w_ms = [timed_ms(lambda: spmm_cuda.spmm_window(steps, b, acc_dtype=bf16), 10)
                 for _ in range(2)]
         f32_ms.append(timed_ms(lambda: spmm_cuda.spmm_window(steps, b), 10))
+        cast_ms = timed_ms(lambda: spmm_cuda.window_operand(b, bf16), 10)
+        chosen = spmm_cuda.lane_mapping(kdim, bf16, b16.data_ptr() % 16 == 0, n, bf16)
+        lane_ms = {str(chosen): timed_ms(
+            lambda: spmm_cuda._window(steps, b16, chosen, bf16), 10)}
+        for vec, gw, nc in BF16ACC_LANE_SWEEP.get(kdim, ()):
+            mapping = (vec, gw, nc, -(-kdim // (vec * gw * nc)))
+            lane_ms[str(mapping)] = timed_ms(
+                lambda: spmm_cuda._window(steps, b16, mapping, bf16), 10)
         e_ms = timed_ms(lambda: spmm_cuda.spmm_epilogue(
             steps, part_p, torch.float32, unperm, acc_dtype=bf16), 10)
+        part32 = spmm_cuda.spmm_window(steps, b)
         e32_ms = timed_ms(lambda: spmm_cuda.spmm_epilogue(
-            steps, part_p, torch.float32, unperm), 10)
+            steps, part32, torch.float32, unperm), 10)
+        del part32
+        tgt, src = part_row[kept], part_p[kept]
+        e_lib = timed_ms(
+            lambda: torch.zeros((m, kdim), dtype=bf16, device=dev).index_add_(0, tgt, src),
+            10)
+        del src
         wp_ms = timed_ms(lambda: spmm_cuda.spmm_window_plain(steps, b, acc_dtype=bf16), 1)
         ep_ms = timed_ms(lambda: spmm_cuda.spmm_epilogue_plain(
             steps, part_p, torch.float32, unperm, acc_dtype=bf16), 1)
         # the yardstick only: a build without a bf16 sparse product records
         # none (the port never calls it)
-        b16, lib_ms, lib_diff, lib_error = b.to(bf16), None, None, None
+        lib_ms, lib_diff, lib_error = None, None, None
         try:
             lib_diff = float((torch.sparse.mm(a_bf16, b16).float() - gold).abs().max())
         except (NotImplementedError, RuntimeError) as e:
@@ -925,23 +1018,29 @@ def phase_bf16acc(ds, winner):
         else:
             lib_ms = timed_ms(lambda: torch.sparse.mm(a_bf16, b16), 10)
         del part_p, b16
-        # the same work as the f32 kernels: bytes and multiply-adds
-        w_bytes = bytes_window(steps, n, kdim, 4) / PEAK_BYTES_PER_S * 1e3
-        w_ops = 2 * n_nnz * kdim / PEAK_F32_FLOPS * 1e3
-        e_bytes = (n_kept * kdim * 4 + (m + 1 + n_kept) * 4 + m * kdim * 4
+        # compulsory bytes: the window reads each record and B once (f32, as
+        # the main path hands it over; bf16 where the caller holds it in
+        # bf16) and writes the bf16 partials; its operations, a bf16 multiply
+        # and add per non-zero and column, at the bf16 peak
+        w_bytes = bytes_window(steps, n, kdim, 4, part_elt=2) / PEAK_BYTES_PER_S * 1e3
+        w_bytes_b16 = bytes_window(steps, n, kdim, 2, part_elt=2) / PEAK_BYTES_PER_S * 1e3
+        w_ops = 2 * n_nnz * kdim / PEAK_BF16_FLOPS * 1e3
+        e_bytes = (n_kept * kdim * 2 + (m + 1 + n_kept + m) * 4 + m * kdim * 4
                    ) / PEAK_BYTES_PER_S * 1e3
         rows["spmm_balanced_bf16acc"].append({
             "kdim": kdim, "max_abs_err": max(err_w, err), "ms": float(np.mean(w_ms)),
             "ms_runs": w_ms, "f32_ms": float(np.mean(f32_ms)), "f32_runs_ms": f32_ms,
+            "cast_ms": cast_ms, "lane_mapping": list(chosen), "lane_sweep_ms": lane_ms,
             "plain_ms": wp_ms, "library_ms": lib_ms, "library_max_abs_diff_f32": lib_diff,
             "library_error": lib_error, "max_abs_err_vs_f32_product": err_gold,
             "max_abs_diff_f32_kernel": err_f32, "bound_ms": max(w_bytes, w_ops),
-            "bound_by": "bytes" if w_bytes >= w_ops else "operations"})
+            "bound_by": "bytes" if w_bytes >= w_ops else "operations",
+            "bound_bytes_ms_bf16_b": w_bytes_b16, "bound_operations_ms": w_ops})
         rows["spmm_epilogue_bf16acc"].append({
             "kdim": kdim, "max_abs_err": err_e, "ms": e_ms, "f32_ms": e32_ms,
-            "plain_ms": ep_ms, "library_ms": None, "bound_ms": e_bytes,
+            "plain_ms": ep_ms, "library_ms": e_lib, "bound_ms": e_bytes,
             "bound_by": "bytes"})
-        del b, gold
+        del b, gold, tgt
         torch.cuda.empty_cache()
     del twins, ex, steps
     torch.cuda.empty_cache()
@@ -960,6 +1059,7 @@ def phase_bf16acc(ds, winner):
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
             entry[key] = shapes[0][key]
         entries.append(entry)
+    entries[0]["rounding_check"] = rounding
     return entries
 
 
@@ -3937,6 +4037,7 @@ def main() -> int:
     for name, log in _build.BUILD_LOGS.items():
         print(f"[build] {name}.cu in {build_s:.1f} s\n{log.strip()}", file=sys.stderr)
     flash_regs = flash_registers()
+    spmm_regs = kernel_registers()
 
     t0 = time.perf_counter()
     n_cases = phase_small(dev)
@@ -4046,7 +4147,7 @@ def main() -> int:
     lm["card"] = card
 
     # the SpMM kernels' registers and spills, and the window kernel's lanes
-    print(json.dumps({"spmm_registers": kernel_registers(), "spmm_lanes": lanes}))
+    print(json.dumps({"spmm_registers": spmm_regs, "spmm_lanes": lanes}))
     print(json.dumps({"flash_registers": flash_regs}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serving": serving}))

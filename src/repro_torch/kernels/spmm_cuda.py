@@ -27,7 +27,12 @@ same two kernels on a schedule built for Aᵀ.
 ``acc_dtype=torch.bfloat16`` selects the kernels' bf16-accumulate variant,
 the port of the executor's ``bf16_accumulate`` option: B and the slot
 values are rounded to bf16, and so is each product and each running sum
-after every add, in the window kernel and in the epilogue alike.
+after every add, in the window kernel and in the epilogue alike. The
+window then takes B in bf16 (``window_operand`` rounds an f32 B once,
+before the launch), multiplies and adds packed bf16 pairs, and writes bf16
+partials, which the epilogue sums in bf16. ``bf16_rounding_check`` runs
+the card's exhaustive check that the packed operations round as the
+written-out f32 sequence of the plain versions.
 
 Each wrapper takes its kernel's plain PyTorch version (``*_plain``, which
 computes the same partials) only for a tensor on the CPU. A CUDA tensor
@@ -68,6 +73,10 @@ MAX_VECTORS = 4
 #: stays in L2 while every step reads it
 L2_BYTES = 50 * 2**20
 LINE_BYTES = 128
+#: lines a panel of the bf16-accumulate window (each of 8 lanes owns 2
+#: vectors): chip_smoke.py phase 6b times it beside 1-line panels and one
+#: pass, which were slower on reddit at kdim 128 and 512
+BF16ACC_PANEL_LINES = 2
 
 
 def reset_launches() -> None:
@@ -263,14 +272,18 @@ def value_patch_plan(plan: dict, nnz_per_step: int, slots, vals):
     return dict(plan, slots=records), rec
 
 
-def lane_mapping(kdim: int, dtype, aligned: bool = True, rows: int = 0):
-    """The window kernel's lanes for B ``[rows, kdim]`` of ``dtype``: returns
+def lane_mapping(kdim: int, dtype, aligned: bool = True, rows: int = 0,
+                 acc_dtype=torch.float32):
+    """The window kernel's lanes for B ``[rows, kdim]`` of ``dtype``
+    (bf16 under ``acc_dtype=torch.bfloat16``, ``window_operand``): returns
     ``(vec, gw, nc, panels)``. A lane gathers ``vec`` elements at once (16
     bytes when ``kdim`` and B's address allow it, else 1) and owns ``nc``
     such vectors; ``gw`` lanes take a step; a step's row is cut into
     ``panels`` of ``gw * nc * vec`` columns, each panel a pass over all
     steps. When B is larger than L2 and its rows are whole lines, a panel is
-    one line (8 lanes of 16 bytes), so the panel's slice of B stays in L2.
+    one line (8 lanes of 16 bytes), so the panel's slice of B stays in L2;
+    under bf16 accumulation ``BF16ACC_PANEL_LINES`` lines (each lane owns
+    that many vectors), where the row holds a whole number of them.
     Otherwise: fewest panels first (each one walks the steps again), then
     fewest idle lanes, then the widest group."""
     elt = torch.empty((), dtype=dtype).element_size()
@@ -278,7 +291,9 @@ def lane_mapping(kdim: int, dtype, aligned: bool = True, rows: int = 0):
     if not aligned or kdim % vec:
         vec = 1
     if vec > 1 and kdim * elt % LINE_BYTES == 0 and rows * kdim * elt > L2_BYTES:
-        return vec, LINE_BYTES // 16, 1, kdim * elt // LINE_BYTES
+        lines = BF16ACC_PANEL_LINES if _check_acc(acc_dtype) and (
+            kdim * elt % (BF16ACC_PANEL_LINES * LINE_BYTES) == 0) else 1
+        return vec, LINE_BYTES // 16, lines, kdim * elt // (lines * LINE_BYTES)
     nv = -(-kdim // vec)
     best = None
     for gw in GROUP_WIDTHS:
@@ -299,6 +314,8 @@ def _lib() -> ctypes.CDLL:
     lib.awb_spmm_window.restype = i
     lib.awb_spmm_epilogue.argtypes = [p, p, p, p, i, i, p, i, i, p]
     lib.awb_spmm_epilogue.restype = i
+    lib.awb_bf16_rounding_check.argtypes = [p, p]
+    lib.awb_bf16_rounding_check.restype = i
     return lib
 
 
@@ -308,6 +325,29 @@ def _check_acc(acc_dtype) -> bool:
         raise ValueError(f"accumulator dtype {acc_dtype}; the kernels accumulate "
                          "in float32 or bfloat16")
     return acc_dtype == torch.bfloat16
+
+
+def window_operand(b: torch.Tensor, acc_dtype=torch.float32) -> torch.Tensor:
+    """B as the window kernel gathers it: under bf16 accumulation an f32 B
+    rounded to bf16 once (the executor's own ``b.astype(acc)``, a plain
+    elementwise cast, so each gathered element is the value the plain
+    version rounds per gather); else B itself."""
+    if _check_acc(acc_dtype) and b.dtype == torch.float32:
+        return b.to(torch.bfloat16)
+    return b
+
+
+def partial_dtype(acc_dtype) -> torch.dtype:
+    """The partial output's dtype: bf16 rows under bf16 accumulation, else
+    f32."""
+    return torch.bfloat16 if _check_acc(acc_dtype) else torch.float32
+
+
+def _check_part(part: torch.Tensor, acc_dtype) -> None:
+    want = partial_dtype(acc_dtype)
+    if part.dtype != want:
+        raise ValueError(f"partial output is {part.dtype}; accumulating in "
+                         f"{acc_dtype} the epilogue takes {want} partials")
 
 
 def _check_cuda(steps: DeviceSteps, x: torch.Tensor, what: str) -> None:
@@ -328,13 +368,15 @@ def _check_cuda(steps: DeviceSteps, x: torch.Tensor, what: str) -> None:
 
 def spmm_window(steps: DeviceSteps, b: torch.Tensor, *, ktile: int = 128,
                 acc_dtype=torch.float32):
-    """Partial output ``[n_parts, kdim]`` in f32: row p is the sum of
+    """Partial output ``[n_parts, kdim]`` in ``partial_dtype(acc_dtype)``
+    (f32, or bf16 under bf16 accumulation): row p is the sum of
     ``val * B[col]`` over the p-th run of equal ``lrow`` among the live
-    slots of its step (accumulated in ``acc_dtype``: with bf16 each row
-    holds bf16 values). Padding slots are skipped, so a non-finite B row is
-    never multiplied into a padding slot. ``ktile`` is accepted as a hint
-    and not used: the kernel lays out its columns from kdim, dtype and B's
-    size (``lane_mapping``)."""
+    slots of its step, accumulated in ``acc_dtype``. Under bf16
+    accumulation an f32 B is rounded to bf16 first (``window_operand``).
+    Padding slots are skipped, so a non-finite B row is never multiplied
+    into a padding slot. ``ktile`` is accepted as a hint and not used: the
+    kernel lays out its columns from kdim, dtype and B's size
+    (``lane_mapping``)."""
     del ktile
     _check_acc(acc_dtype)
     if b.device.type == "cpu":
@@ -345,18 +387,24 @@ def spmm_window(steps: DeviceSteps, b: torch.Tensor, *, ktile: int = 128,
         raise ValueError(f"B has shape {tuple(b.shape)}; the schedule needs [{n}, k]")
     if b.dtype not in _DTYPES:
         raise ValueError(f"B is {b.dtype}; the kernel takes float32 or bfloat16")
-    return _window(steps, b, lane_mapping(b.shape[1], b.dtype,
-                                          b.data_ptr() % 16 == 0, n), acc_dtype)
+    b = window_operand(b, acc_dtype)
+    return _window(steps, b, lane_mapping(b.shape[1], b.dtype, b.data_ptr() % 16 == 0,
+                                          n, acc_dtype), acc_dtype)
 
 
 def _window(steps: DeviceSteps, b: torch.Tensor, mapping,
             acc_dtype=torch.float32) -> torch.Tensor:
     """Launch the window kernel on a checked B with the lanes ``mapping``
-    (``lane_mapping``'s tuple)."""
+    (``lane_mapping``'s tuple); under bf16 accumulation B must be bf16
+    already (``window_operand``)."""
     bf16acc = _check_acc(acc_dtype)
+    if bf16acc and b.dtype != torch.bfloat16:
+        raise ValueError(f"B is {b.dtype}; the bf16-accumulate window gathers "
+                         "bfloat16 (window_operand)")
     vec, gw, nc, _ = mapping
     kdim = b.shape[1]
-    out = torch.empty((steps.n_parts, kdim), dtype=torch.float32, device=b.device)
+    out = torch.empty((steps.n_parts, kdim), dtype=partial_dtype(acc_dtype),
+                      device=b.device)
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream().cuda_stream
         LAUNCHES["spmm_balanced_bf16acc" if bf16acc else "spmm_balanced"] += 1
@@ -410,7 +458,7 @@ def _window_plain_bf16(steps: DeviceSteps, b: torch.Tensor) -> torch.Tensor:
     """The bf16-accumulate window in plain PyTorch, in the kernel's rounding
     sequence: each run's slots are added in slot order, one position of
     every run at a time, as ``sum = bf16(sum + bf16(bf16(B) * bf16(val)))``.
-    Returns the f32 partials holding bf16 values."""
+    Returns the bf16 partials."""
     kdim = b.shape[1]
     head, bits = steps.slots.unbind(dim=1)
     start = head < 0
@@ -426,7 +474,7 @@ def _window_plain_bf16(steps: DeviceSteps, b: torch.Tensor) -> torch.Tensor:
             s = group[lo:lo + chunk]
             p = part[s]
             out[p] = out[p] + b[rows[s]].to(torch.bfloat16) * val[s][:, None]
-    return out.float()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -440,20 +488,19 @@ def spmm_epilogue(steps: DeviceSteps, part: torch.Tensor, dtype,
     """Matrix rows ``[m, kdim]`` in ``dtype`` from the partial output: row
     ``i`` sums, in ascending order, the partials of row ``row_unperm[i]``
     (or ``i``), in ``acc_dtype`` (bf16: rounded after every add). The
-    kernel reads 16-byte vectors of ``part`` when kdim is a multiple of 4
-    and ``part`` is 16-byte aligned, else single floats."""
+    partials' dtype must be ``partial_dtype(acc_dtype)``. The kernel reads
+    16-byte vectors of ``part`` (4 f32 or 8 bf16 columns) when kdim is a
+    multiple of that and ``part`` and the output are 16-byte aligned, else
+    single elements."""
     bf16acc = _check_acc(acc_dtype)
+    _check_part(part, acc_dtype)
     if part.device.type == "cpu":
         return spmm_epilogue_plain(steps, part, dtype, row_unperm, acc_dtype=acc_dtype)
     _check_cuda(steps, part, "the partial output")
     m = steps.shape[0]
-    if part.dtype != torch.float32 or part.dim() != 2 or (
-        part.shape[0] != steps.n_parts
-    ):
-        raise ValueError(
-            f"partial output is {part.dtype} {tuple(part.shape)}; "
-            f"the epilogue needs float32 [{steps.n_parts}, k]"
-        )
+    if part.dim() != 2 or part.shape[0] != steps.n_parts:
+        raise ValueError(f"partial output has shape {tuple(part.shape)}; the "
+                         f"epilogue needs [{steps.n_parts}, k]")
     if dtype not in _DTYPES:
         raise ValueError(f"output dtype {dtype}; the kernel writes float32 or bfloat16")
     unperm_ptr = None
@@ -484,6 +531,7 @@ def spmm_epilogue_plain(steps: DeviceSteps, part: torch.Tensor, dtype,
     into it in f32, then the un-permutation and the cast. In bf16 it adds
     each row's partials in ascending order, one position of every row at a
     time, rounding after each add as the kernel does."""
+    _check_part(part, acc_dtype)
     m = steps.shape[0]
     rows = torch.repeat_interleave(
         torch.arange(m, device=part.device), steps.epi_ptr.diff().long())
@@ -493,7 +541,7 @@ def spmm_epilogue_plain(steps: DeviceSteps, part: torch.Tensor, dtype,
         q = torch.arange(rows.numel(), device=part.device)
         for group in _positions(q, steps.epi_ptr[:-1].long()[rows]):
             r = rows[group]
-            out[r] = out[r] + part[steps.epi_part[group].long()].to(torch.bfloat16)
+            out[r] = out[r] + part[steps.epi_part[group].long()]
     else:
         out = torch.zeros((m, part.shape[1]), dtype=torch.float32,
                           device=part.device)
@@ -501,6 +549,26 @@ def spmm_epilogue_plain(steps: DeviceSteps, part: torch.Tensor, dtype,
     if row_unperm is not None:
         out = out[row_unperm.long()]
     return out.to(dtype)
+
+
+def bf16_rounding_check(device) -> Tuple[int, int]:
+    """The card's exhaustive check behind the bf16-accumulate kernels:
+    over all 2^32 pairs of bf16 bit patterns, how many times
+    ``mul.rn.bf16x2`` and ``add.rn.bf16x2`` differ from the written-out
+    f32 sequence of the plain versions (round the f32 product or sum to
+    bf16; a NaN equals any NaN). Returns ``(multiply, add)`` mismatches,
+    which must both be 0. Runs on a CUDA ``device`` only."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the rounding check runs on CUDA, not {device}")
+    counts = torch.zeros(2, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().awb_bf16_rounding_check(counts.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"awb_bf16_rounding_check launch failed: cudaError {err}")
+    mul, add = counts.tolist()
+    return mul, add
 
 
 # ---------------------------------------------------------------------------

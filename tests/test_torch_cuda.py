@@ -206,18 +206,53 @@ def test_bf16acc_kernels_match_plain_and_are_deterministic(dev, kind, kdim, dtyp
     assert torch.equal(got, plain)
     part = spmm_cuda.spmm_window(steps, b, acc_dtype=torch.bfloat16)
     part_p = spmm_cuda.spmm_window_plain(steps, b, acc_dtype=torch.bfloat16)
-    assert torch.equal(part, part_p)
+    assert part.dtype == torch.bfloat16 and torch.equal(part, part_p)
     for row_unperm in (None, unperm):
         assert torch.equal(
             spmm_cuda.spmm_epilogue(steps, part_p, dtype, row_unperm,
                                     acc_dtype=torch.bfloat16),
             spmm_cuda.spmm_epilogue_plain(steps, part_p, dtype, row_unperm,
                                           acc_dtype=torch.bfloat16))
+    # an f32 B and the same values already in bf16 give the same bits: the
+    # window rounds an f32 B once before it gathers
+    b16 = b.to(torch.bfloat16)
+    assert torch.equal(spmm_cuda.spmm_window(steps, b16, acc_dtype=torch.bfloat16), part)
+    got16 = spmm_cuda.spmm_balanced(steps, b16, acc_dtype=torch.bfloat16)
+    assert got16.dtype == torch.bfloat16 and torch.equal(got16.to(dtype), got)
+    # partials and accumulator of different dtypes are refused
+    with pytest.raises(ValueError, match="partial"):
+        spmm_cuda.spmm_epilogue(steps, part_p.float(), dtype, acc_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="partial"):
+        spmm_cuda.spmm_epilogue(steps, part_p, dtype)
     gold = tspmm.spmm_coo(a, b.float())
     assert float((got.float() - gold).abs().max()) <= 0.1
     # dropping the variant (the f32 kernels under the bf16 name) must fail
     assert not torch.equal(got, spmm_cuda.spmm_balanced(steps, b))
     assert torch.equal(spmm_cuda.spmm_balanced(steps, b, acc_dtype=torch.bfloat16), got)
+
+
+def test_bf16_rounding_check_finds_no_mismatch(dev):
+    """mul.rn.bf16x2 and add.rn.bf16x2 round as the written-out f32
+    sequence of the plain versions on all 2^32 pairs of bf16 patterns."""
+    assert spmm_cuda.bf16_rounding_check(dev) == (0, 0)
+
+
+@pytest.mark.parametrize("kdim,vec", [(128, 8), (512, 8), (41, 1), (128, 1)])
+@pytest.mark.parametrize("gw", spmm_cuda.GROUP_WIDTHS)
+@pytest.mark.parametrize("nc", range(1, spmm_cuda.MAX_VECTORS + 1))
+def test_bf16acc_every_lane_mapping_matches_plain(dev, kdim, vec, gw, nc):
+    """Every instantiation of the bf16-accumulate window (16-byte and
+    scalar gathers, 1-4 vectors a lane, each group width), with its column
+    panels, bit-equal to the plain version."""
+    a = tsynth.power_law_adjacency(300, 0.04, 1.2, seed=gw + nc)
+    steps = texe.device_step_arrays(SCHEDULES["blocked_evil"](a), dev)
+    b = torch.from_numpy(np.random.default_rng(nc).standard_normal(
+        (300, kdim)).astype(np.float32)).to(dev).to(torch.bfloat16)
+    mapping = (vec, gw, nc, -(-kdim // (vec * gw * nc)))
+    got = spmm_cuda._window(steps, b, mapping, torch.bfloat16)
+    assert torch.equal(got, spmm_cuda.spmm_window_plain(steps, b, acc_dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="bfloat16"):
+        spmm_cuda._window(steps, b.float(), mapping, torch.bfloat16)
 
 
 def test_bf16_accumulate_executor_runs_on_the_card(dev):

@@ -218,6 +218,52 @@ def test_lane_mapping(kdim, dtype, rows, mapping, idle):
     assert gw in spmm_cuda.GROUP_WIDTHS and 1 <= nc <= spmm_cuda.MAX_VECTORS
 
 
+@pytest.mark.parametrize("kdim,rows,mapping", [
+    (128, REDDIT_ROWS, (8, 8, 2, 1)), (512, REDDIT_ROWS, (8, 8, 2, 4)),
+    (256, REDDIT_ROWS, (8, 8, 2, 2)), (64, REDDIT_ROWS, (8, 8, 1, 1)),
+    (512, 1000, (8, 32, 2, 1)), (164, REDDIT_ROWS, (1, 32, 3, 2)),
+])
+def test_bf16acc_wrapper_choices(kdim, rows, mapping):
+    """The bf16-accumulate window's host-side choices, as plain functions:
+    an f32 B is cast to bf16 once (a bf16 B and f32 accumulation are left
+    alone), the partials are bf16, and the lanes for bf16 B: 2-line panels
+    where B outgrows L2 and a row holds whole pairs of lines (reddit at
+    kdim 128 and 512), else the f32-accumulate rule for bf16 B."""
+    b = torch.from_numpy(np.random.default_rng(kdim).standard_normal(
+        (8, kdim)).astype(np.float32))
+    b16 = spmm_cuda.window_operand(b, torch.bfloat16)
+    assert b16.dtype == torch.bfloat16 and torch.equal(b16, b.to(torch.bfloat16))
+    assert spmm_cuda.window_operand(b16, torch.bfloat16) is b16
+    assert spmm_cuda.window_operand(b, torch.float32) is b
+    assert spmm_cuda.partial_dtype(torch.bfloat16) == torch.bfloat16
+    assert spmm_cuda.partial_dtype(torch.float32) == torch.float32
+    bf16 = torch.bfloat16
+    assert spmm_cuda.lane_mapping(kdim, bf16, rows=rows, acc_dtype=bf16) == mapping
+    if rows * kdim * 2 <= spmm_cuda.L2_BYTES or kdim % 8:
+        assert mapping == spmm_cuda.lane_mapping(kdim, bf16, rows=rows)
+    with pytest.raises(ValueError, match="accumulat"):
+        spmm_cuda.window_operand(b, torch.float16)
+
+
+def test_epilogue_refuses_partials_of_the_other_accumulator():
+    ta, _, b = _case(80, 0.06, 0.9, 6, 2)
+    steps = texe.device_step_arrays(tsched.build_balanced_schedule(ta, 16, 8), "cpu")
+    tb = torch.from_numpy(b)
+    p32 = spmm_cuda.spmm_window(steps, tb)
+    p16 = spmm_cuda.spmm_window(steps, tb, acc_dtype=torch.bfloat16)
+    assert (p32.dtype, p16.dtype) == (torch.float32, torch.bfloat16)
+    for fn in (spmm_cuda.spmm_epilogue, spmm_cuda.spmm_epilogue_plain):
+        with pytest.raises(ValueError, match="partial"):
+            fn(steps, p16, torch.float32)
+        with pytest.raises(ValueError, match="partial"):
+            fn(steps, p32, torch.float32, acc_dtype=torch.bfloat16)
+    # the same bits from an f32 B and from its bf16 values
+    p16b = spmm_cuda.spmm_window(steps, tb.to(torch.bfloat16), acc_dtype=torch.bfloat16)
+    assert torch.equal(p16, p16b)
+    out = spmm_cuda.spmm_epilogue(steps, p16, torch.float32, acc_dtype=torch.bfloat16)
+    assert torch.equal(out, spmm_cuda.spmm_balanced(steps, tb, acc_dtype=torch.bfloat16))
+
+
 def test_plain_window_and_epilogue_with_unperm():
     ta, _, b = _case(120, 0.05, 0.9, 7, 3)
     s = tsched.build_balanced_schedule(ta, 16, 8, evil_threshold=8)
@@ -330,9 +376,9 @@ def test_bf16_accumulate_plain_matches_reference_executor(kind, dtype):
     np.testing.assert_allclose(got32, want, atol=3e-2 * max(1.0, np.abs(want).max()))
     gold = np.asarray(jspmm.spmm_coo(ja, jnp.asarray(b)))
     np.testing.assert_allclose(got32, gold, atol=0.1)
-    # each partial holds bf16 values: the rounding is the kernel's
+    # the partials are bf16 rows, as the kernel writes them
     steps = texe.device_step_arrays(ts, "cpu")
     part = spmm_cuda.spmm_window_plain(steps, bt, acc_dtype=torch.bfloat16)
-    assert torch.equal(part, part.bfloat16().float())
+    assert part.dtype == torch.bfloat16 and part.shape == (steps.n_parts, 9)
     with pytest.raises(ValueError, match="accumulat"):
         spmm_cuda.spmm_window_plain(steps, bt, acc_dtype=torch.float16)
