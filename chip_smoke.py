@@ -279,6 +279,19 @@ Builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` with
    changed (phase 10's rule); where no set differs, every (token, expert)
    choice is kept on both sides or on neither (a near tie inside a token's
    top k may order its choices differently, which moves no arrival rank).
+16. Runs the port's four examples on the card, in process, through each
+   one's ``main(argv)`` with no arguments (``EXAMPLES``; their output goes
+   to standard error): ``quickstart_torch`` (cora at scale 2: profile,
+   autotuner, schedules, ``spmm_cuda.spmm_balanced`` against the COO
+   product, the executor, a tuning-store warm restart),
+   ``serve_gcn_torch`` (two GCNs trained through ``make_spmm_fn``, cold
+   and warm admission, batched and deadline serving, a hot graph
+   replicated over two positions of the card), ``train_lm_torch``
+   (reduced qwen2-0.5b, 60 steps, the loss must drop by 0.1) and
+   ``moe_rebalance_torch``. Each example asserts its own results; any
+   failure fails the run. The SpMM and flash launch counts are reset just
+   before and read just after each example: quickstart and serve_gcn must
+   launch the SpMM kernels, train_lm the flash kernel.
 
 Float32 matmuls and cuDNN run without TF32 (both flags are set False), so
 every float32 product is full float32. Tolerances, each scaled by
@@ -309,7 +322,9 @@ entries ``flash_attention@whisper-tiny``,
 ``{"lm_training": ...}`` lines (phases 13 and 14; the latter's flash entry
 ``flash_attention@lm-training``), a ``{"mesh_steps": ...}`` line (phase 15;
 its kernels entries ``spmm_balanced@mesh``, ``spmm_epilogue@mesh`` and
-``flash_attention@mesh-train``), the card's name and power limit, and
+``flash_attention@mesh-train``), an ``{"examples": ...}`` line (phase 16:
+each example's wall seconds and launch counts), the card's name and power
+limit, and
 as its last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device, or without the rest of the repository, it exits
@@ -422,6 +437,10 @@ TRAIN_PARTS = ("forward", "flash_forward", "cross_entropy", "backward", "flash_b
 # MESH_DRYRUN cells on the 16 × 16 production mesh
 MESH_STEP_SHAPE, MESH_TRAIN_STEPS, MESH_DECODE = (2, 2), 5, 8
 MESH_DRYRUN = (("qwen2-0.5b", "train_4k"), ("gcn-reddit", "train_4k"))
+#: phase 16: the port's examples (``examples/<name>.py``), and the kernel
+#: family each must launch
+EXAMPLES = {"quickstart_torch": "spmm", "serve_gcn_torch": "spmm",
+            "train_lm_torch": "flash", "moe_rebalance_torch": None}
 # the flash kernel's checks: (b, sq, sk, h, hkv, d), the JAX kernel tests'
 # shapes then the configs' head widths at a length no tile divides
 ATTN_SHAPES = [(2, 32, 32, 4, 4, 16), (1, 48, 48, 8, 2, 32), (2, 16, 64, 4, 1, 16),
@@ -4016,6 +4035,38 @@ def flash_registers() -> dict:
     return regs
 
 
+def phase_examples(card: str) -> dict:
+    """The port's examples on the card; see the module docstring's phase 16.
+    Returns the ``examples`` record."""
+    import contextlib
+    import importlib.util
+
+    from repro_torch.kernels import flash_attention_cuda as tfa
+    from repro_torch.kernels import spmm_cuda
+
+    out = {}
+    for name, must in EXAMPLES.items():
+        spec = importlib.util.spec_from_file_location(
+            f"example_{name}", ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        spmm_cuda.reset_launches()
+        tfa.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            mod.main([])
+        seconds = time.perf_counter() - t0
+        rec = {"seconds": seconds,
+               "spmm_launches": sum(spmm_cuda.LAUNCHES.values()),
+               "flash_launches": sum(tfa.LAUNCHES.values())}
+        if must is not None and rec[f"{must}_launches"] == 0:
+            raise AssertionError(f"phase 16: {name} never launched the {must} kernels")
+        out[name] = rec
+        print(f"[phase 16] {name} in {seconds:.1f} s", file=sys.stderr)
+    out["card"] = card
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4128,6 +4179,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"[phase 15] mesh steps (gcn, train, prefill/decode, dry-run, MoE prefill) in "
           f"{mesh_steps['seconds']['phase']:.1f} s", file=sys.stderr)
+    t0 = time.perf_counter()
+    examples = phase_examples(card)
+    print(f"[phase 16] the port's four examples in {time.perf_counter() - t0:.1f} s",
+          file=sys.stderr)
     for entry in kernels:
         if entry["name"] in F32_SPMM:
             entry["launches_sharded_forward_batch"] = {
@@ -4163,6 +4218,7 @@ def main() -> int:
     print(json.dumps({"rwkv_serving": rwkv}))
     print(json.dumps({"lm_training": lm_training}))
     print(json.dumps({"mesh_steps": mesh_steps}))
+    print(json.dumps({"examples": examples}))
     # the window kernel's bound if every gathered B row came from HBM, per kdim
     print(json.dumps({"spmm_balanced_bound_all_miss_ms": all_miss}))
     # the flash kernel's bounds at the prefill shape: tensor cores (3xTF32 in

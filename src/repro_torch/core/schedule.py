@@ -109,6 +109,15 @@ class Schedule:
         analogue of the paper's PE utilization."""
         return self.nnz / max(1, self.issued_slots)
 
+    def device_step_ranges(self, n_devices: int) -> np.ndarray:
+        """Split steps contiguously across devices; since steps are
+        equal-work, equal step counts == balanced devices. Delegates to the
+        shared splitter every shard consumer uses
+        (``sharding.schedule_shard.split_step_ranges``)."""
+        from repro_torch.sharding.schedule_shard import split_step_ranges
+
+        return split_step_ranges(self.n_steps, n_devices)
+
 
 # ---------------------------------------------------------------------------
 # Serialization — the tuning store persists converged schedules as plain

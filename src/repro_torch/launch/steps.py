@@ -48,6 +48,16 @@ def _to_dtype_specs(tree, dtype):
     return tree_map(lambda s: torch.empty(s.shape, dtype=dtype, device="meta"), tree)
 
 
+def model_shardings(cfg: tr.ModelConfig, mesh: Optional[Mesh]):
+    """(param_specs_bf16, param_pspecs) for the working (bf16) parameters:
+    meta-device specs and ``partition.param_pspecs`` on ``mesh``, the
+    counterpart of the JAX package's (specs, ``NamedSharding`` tree).
+    ``mesh`` None is one device, where nothing is partitioned: the pspecs
+    are None."""
+    specs = _to_dtype_specs(tr.param_specs(cfg), torch.bfloat16)
+    return specs, None if mesh is None else partition.param_pspecs(cfg, specs, mesh)
+
+
 def _check_batch(batch: dict, batch_specs: dict) -> None:
     for key, spec in batch_specs.items():
         got = batch.get(key)
@@ -104,11 +114,11 @@ def make_train_step(cfg: tr.ModelConfig, device=None, batch_specs: Optional[dict
     parameters kept in the dtype they came in and ``metrics`` on the first
     position's device."""
     opt_cfg = opt_cfg or opt_mod.AdamWConfig()
-    param_specs = _to_dtype_specs(tr.param_specs(cfg), torch.bfloat16)
+    param_specs, pspecs = model_shardings(
+        cfg, device if isinstance(device, Mesh) else None)
     opt_specs = opt_mod.adamw_init(param_specs)
     if isinstance(device, Mesh):
         mesh = device
-        pspecs = partition.param_pspecs(cfg, param_specs, mesh)
         ospecs = partition.opt_state_pspecs(pspecs)
 
         def mesh_train_step(params, opt_state, batch):
@@ -145,7 +155,7 @@ def make_prefill_step(cfg: tr.ModelConfig, device=None, batch_specs: Optional[di
     list of dicts of ``partition.Sharded`` under ``cache_pspecs``, the
     logits on the first position's device, and ``prefill_step.log`` the
     last call's collectives at position (0, 0)."""
-    specs = (_to_dtype_specs(tr.param_specs(cfg), torch.bfloat16),)
+    specs = (model_shardings(cfg, None)[0],)
     if isinstance(device, Mesh):
         def mesh_prefill_step(params, batch):
             if batch_specs is not None:
@@ -178,7 +188,7 @@ def make_decode_step(cfg: tr.ModelConfig, device=None, batch: int = 1,
     positions, and ``decode.log`` the last call's collectives at position
     (0, 0); one device ignores ``seq_shard_kv``."""
     cache_specs = tr.init_cache(cfg, batch, max_seq, torch.bfloat16, device="meta")
-    specs = (_to_dtype_specs(tr.param_specs(cfg), torch.bfloat16), cache_specs)
+    specs = (model_shardings(cfg, None)[0], cache_specs)
     if isinstance(device, Mesh):
         def mesh_decode(params, cache, token, pos):
             mesh_decode.log = []

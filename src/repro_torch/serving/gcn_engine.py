@@ -116,6 +116,8 @@ from repro_torch.serving.placement import (
 from repro_torch.serving.policy import (
     GROW,
     SHRINK,
+    SVC_FLOOR_S,
+    SVC_SAFETY,
     GraphState,
     HeuristicPolicy,
     PolicyState,
@@ -131,6 +133,11 @@ from repro_torch.tuning.store import TuningStore, device_count
 #: path's 12 bytes/slot plus schedule padding slack — only used to route
 #: giant graphs to the sharded path before their schedule exists
 _BYTES_PER_NNZ_EST = 16
+
+#: historical aliases of the dispatch-headroom constants, which live with
+#: the scheduling policies in ``serving.policy``
+_SVC_SAFETY = SVC_SAFETY
+_SVC_FLOOR_S = SVC_FLOOR_S
 
 #: bounded reservoir of recent per-request latencies (seconds) backing
 #: the p50/p95/p99 percentiles in ``stats()``.

@@ -1,6 +1,7 @@
-"""Hygiene of the port: ``src/repro_torch`` and ``chip_smoke.py`` import
-neither ``jax`` nor the JAX package, and entry points run on the card or
-raise — they never fall back to the CPU on their own."""
+"""Hygiene of the port: ``src/repro_torch``, ``chip_smoke.py`` and the
+port's examples (``examples/*_torch.py``) import neither ``jax`` nor the
+JAX package, and entry points run on the card or raise — they never fall
+back to the CPU on their own."""
 import ast
 import os
 import subprocess
@@ -16,7 +17,7 @@ from repro_torch import device as tdevice  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py"] + sorted((REPO / "examples").glob("*_torch.py"))
 BANNED = ("jax", "jaxlib", "repro")
 
 
@@ -57,7 +58,9 @@ def test_port_files_exist():
               "src/repro_torch/sharding/hints.py", "src/repro_torch/sharding/collectives.py",
               "src/repro_torch/sharding/pipeline.py", "src/repro_torch/sharding/spmd.py",
               "src/repro_torch/roofline/__init__.py",
-              "src/repro_torch/roofline/analysis.py"):
+              "src/repro_torch/roofline/analysis.py",
+              "examples/quickstart_torch.py", "examples/serve_gcn_torch.py",
+              "examples/train_lm_torch.py", "examples/moe_rebalance_torch.py"):
         assert f in names
     for src in ("spmm_balanced.cu", "flash_attention.cu"):
         assert (REPO / "src/repro_torch/kernels/csrc" / src).exists()
