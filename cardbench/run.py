@@ -1,0 +1,285 @@
+"""Run one cell of the benchmark once, in this process, on the card.
+
+    python3 cardbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
+
+Set-up (the cell's inputs from ``--seed``, the engine, the graph's
+admission, a warm-up at the window's batch sizes), then ``--seconds`` of the
+cell's traffic through ``repro_torch.serving.gcn_engine.GCNServingEngine``,
+then the check: a sample of the window's answers, drawn from the seed,
+against the plain reference. The last line of standard output is one JSON
+object: ``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's
+end-to-end metrics, or with ``--trace 1`` its per-layer ones), ``device``,
+with ``--trace 1`` a ``breakdown``, and last ``checks``: each number
+compared beside its limit, which also end standard error.
+
+A run without a CUDA card, or with fewer cards than the cell asks for,
+fails and prints no result.
+"""
+
+from __future__ import annotations
+
+import time
+
+T_START = time.perf_counter()
+
+import argparse  # noqa: E402
+import gc  # noqa: E402
+import json  # noqa: E402
+import random  # noqa: E402
+import shutil  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+import tempfile  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+for _p in (ROOT / "src", ROOT):
+    if str(_p) not in sys.path:
+        sys.path.insert(0, str(_p))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from cardbench import inputs, load, reference, spec, trace  # noqa: E402
+
+#: top-level module names that may not be loaded in the process that
+#: prints a result: JAX and the JAX package the port was made from
+FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
+#: answers kept for the check, drawn from the seed among all the window's
+SAMPLE = 16
+GRAPH_ID = "cell"
+
+
+def log(msg: str) -> None:
+    print(f"[cardbench] {msg}", file=sys.stderr, flush=True)
+
+
+def forbidden_modules() -> list:
+    return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
+
+
+def power_limit() -> str | None:
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return out.strip().splitlines()[0] if out.strip() else None
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+class Served:
+    """One configuration's graph admitted to a fresh engine, with its
+    weights and pool of requests. ``calls`` are the engine's calls for the
+    generator; they note the size of every batch the engine completes
+    while ``counting`` (from its ``batches`` and ``requests`` counters).
+    ``close`` drops the engine and its tuning store."""
+
+    def __init__(self, cfg: dict, mix: load.Mix, seed: int, dev: torch.device):
+        from repro_torch.core import csc
+        from repro_torch.serving.gcn_engine import GCNServingEngine
+
+        self.dev, self.deadline_s = dev, mix.deadline_s
+        serving = cfg["serving"]
+        t = time.perf_counter()
+        self.g, self.ws, self.pool = inputs.cell(
+            cfg, mix.pool_size(serving["max_batch"]), seed, dev)
+        _sync(dev)
+        log(f"graph of {self.g.n} nodes, {self.g.nnz} non-zeros, weights and "
+            f"{len(self.pool)} requests in {time.perf_counter() - t:.3f} s")
+        self.store_dir = tempfile.mkdtemp(prefix="cardbench-store-")
+        self.eng = GCNServingEngine(
+            store_root=self.store_dir, device=dev, max_batch=serving["max_batch"],
+            device_budget_bytes=serving["device_budget_bytes"],
+            autotune_kwargs={"sweep": [serving["candidate"]], "bf16_report": False})
+        t = time.perf_counter()
+        # the generator's arrays are row-major sorted already: the COO that
+        # ``csc.coo_from_arrays`` would make, without its 23M-key lexsort
+        g = self.g
+        coo = csc.COO(torch.from_numpy(g.rows.astype(np.int32)),
+                      torch.from_numpy(g.cols.astype(np.int32)),
+                      torch.from_numpy(g.vals), (g.n, g.n))
+        self.admit = self.eng.add_graph(
+            GRAPH_ID, coo, {f"w{i}": w for i, w in enumerate(self.ws)})
+        log(f"add_graph in {time.perf_counter() - t:.3f} s, "
+            f"{self.eng.store.nbytes()} bytes written to its store: "
+            f"{self.admit.config}")
+        self.counting, self.sizes = False, []
+        self._b, self._r = self.eng.counters["batches"], self.eng.counters["requests"]
+        self.calls = load.Engine(self._submit, self._poll, self._flush)
+
+    def _note(self):
+        b, r = self.eng.counters["batches"], self.eng.counters["requests"]
+        if self.counting and b > self._b:
+            per, rem = divmod(r - self._r, b - self._b)
+            self.sizes += [per + (i < rem) for i in range(b - self._b)]
+        self._b, self._r = b, r
+
+    def _submit(self, x):
+        ok = self.eng.submit(GRAPH_ID, x, deadline_s=self.deadline_s).accepted
+        self._note()
+        return ok
+
+    def _poll(self):
+        out = self.eng.poll().get(GRAPH_ID)
+        self._note()
+        return out
+
+    def _flush(self):
+        out = self.eng.flush().get(GRAPH_ID)
+        self._note()
+        return out
+
+    def close(self) -> None:
+        # the engine's references are the only ones to its executors and
+        # uploads: dropping it frees them, queued requests or not
+        self.eng = self.calls = None
+        shutil.rmtree(self.store_dir, ignore_errors=True)
+        gc.collect()
+        if self.dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def run_cell(name: str, seed: int, seconds: float, traced: bool, *,
+             root: Path = ROOT, device="cuda", t_start: float = T_START,
+             config_over: dict | None = None) -> dict:
+    """One run of cell ``name``; returns the result's fields.
+    ``config_over`` replaces keys of the cell's configuration (the control
+    runs the program with ``{"tf32": True}``)."""
+    bench = spec.benchmark(root)
+    cell = spec.workload(bench, name)
+    cfg = {**spec.config(bench, cell["config"], root), **(config_over or {})}
+    mix = load.Mix.from_dict(spec.traffic(cell["traffic"], root))
+    metrics = spec.cell_metrics(bench, name, traced)
+    readers = {m["name"]: spec.reader(m["name"], root) for m in metrics}
+    dev = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = cfg["tf32"]
+    torch.backends.cudnn.allow_tf32 = cfg["tf32"]
+
+    rng = random.Random(seed)
+    kept: dict = {}
+
+    def keep(i, idx, out):
+        slot = i if i < SAMPLE else rng.randrange(i + 1)
+        if slot < SAMPLE:
+            kept[slot] = (idx, out.clone())
+
+    s = Served(cfg, mix, seed, dev)
+    try:
+        t = time.perf_counter()
+        load.warm_up(s.calls, s.pool, mix.warmup_rounds)
+        _sync(dev)
+        log(f"warm-up in {time.perf_counter() - t:.3f} s")
+        # what set-up made lives as long as the server: freeze it, so that a
+        # full collection in the window scans only what the window made (a
+        # scan of the imports' objects stalls serving for about 0.1 s)
+        gc.collect()
+        gc.freeze()
+        prof, span = None, load.nospan
+        if traced:
+            from torch.profiler import ProfilerActivity, profile, record_function
+
+            acts = [ProfilerActivity.CPU]
+            if dev.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            prof = profile(activities=acts)
+            prof.__enter__()
+            span = record_function
+        setup_s = time.perf_counter() - t_start
+        loop = load.loop(mix, s.calls, s.pool, seed, on_answer=keep, span=span)
+        s.counting = True
+        try:
+            loop.run(seconds)
+            _sync(dev)
+        finally:
+            s.counting = False
+            gc.unfreeze()
+            if prof is not None:
+                prof.__exit__(None, None, None)
+        peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+        loop.drain()
+        log(f"window {loop.seconds:.3f} s: {loop.completed_in_window} answered in it, "
+            f"{loop.attempted} sent, {loop.failed} failed, {len(s.sizes)} batches, "
+            f"generator late by {1e3 * getattr(loop, 'lateness_s', 0.0):.3f} ms "
+            f"at most")
+    finally:
+        s.close()
+
+    t = time.perf_counter()
+    g = s.g
+    err = float("inf") if not kept else 0.0
+    rows, cols = (torch.from_numpy(a).to(dev) for a in (g.rows, g.cols))
+    vals = torch.from_numpy(g.vals).to(dev)
+    for idx in sorted({idx for idx, _ in kept.values()}):
+        ref = reference.gcn_logits(rows, cols, vals, g.n, s.pool[idx], s.ws)
+        for i, out in kept.values():
+            if i == idx:
+                err = max(err, reference.rel_err(out, ref))
+    log(f"reference over {len(kept)} answers in {time.perf_counter() - t:.3f} s")
+    checks = {"logits_rel_err": {"value": err,
+                                 "limit": cfg["limits"]["logits_rel_err"]},
+              "failed": {"value": loop.failed, "limit": 0}}
+    correct = all(c["value"] <= c["limit"] for c in checks.values())
+
+    events = trace.from_profiler(prof) if prof is not None else None
+    run = spec.Run(n=g.n, nnz=g.nnz, dims=inputs.dims(cfg), setup_s=setup_s,
+                   window_s=loop.seconds, completed_in_window=loop.completed_in_window,
+                   latencies_s=loop.latencies_s, batch_sizes=s.sizes,
+                   schedule_utilization=s.admit.config.utilization, events=events)
+    values = {}
+    for m in metrics:
+        v = readers[m["name"]](run)
+        if v is None and not traced:
+            raise RuntimeError(f"end-to-end metric {m['name']!r} read nothing")
+        if v is not None:
+            values[m["name"]] = {"value": float(v), "unit": m["unit"]}
+    result = {"correct": correct, "attempted": loop.attempted, "failed": loop.failed,
+              "metrics": values, "device": device_info(dev, cell["chips"], peak)}
+    if events is not None:
+        result["device"]["busy_s"] = trace.busy_s(events)
+        result["device"]["window_s"] = loop.seconds
+        result["breakdown"] = trace.breakdown(events)
+    result["checks"] = checks
+    return result
+
+
+def device_info(dev: torch.device, chips: int, peak: int) -> dict:
+    if dev.type != "cuda":
+        return {"platform": dev.type, "kind": dev.type, "count": 1,
+                "memory_peak_bytes": peak}
+    return {"platform": "gpu", "kind": torch.cuda.get_device_name(dev), "count": chips,
+            "memory_peak_bytes": peak, "power_limit": power_limit()}
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--workload", required=True)
+    p.add_argument("--seed", type=int, required=True)
+    p.add_argument("--seconds", type=float, required=True)
+    p.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    args = p.parse_args(argv)
+    chips = spec.workload(spec.benchmark(), args.workload)["chips"]
+    if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        log(f"cell {args.workload!r} needs {chips} CUDA card(s); "
+            f"this machine has {have}")
+        return 2
+    result = run_cell(args.workload, args.seed, args.seconds, bool(args.trace))
+    found = forbidden_modules()
+    if found:
+        log(f"the run loaded {found}: the benchmark measures the port alone")
+        return 3
+    for k, c in result["checks"].items():
+        print(f"check {k} {c['value']!r} limit {c['limit']!r}", file=sys.stderr)
+    sys.stderr.flush()
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
