@@ -40,6 +40,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.schedule import Schedule
 from repro_torch.core.spmm import GATHER_ELEMS
 from repro_torch.device import resolve_device, resolve_mesh
@@ -473,7 +474,10 @@ class _ExecutorBase:
         a request's logits do not depend on the batch it came in (a replica
         that serves part of a batch gives the bits the whole batch would);
         each layer's SpMM then runs once on the requests' column-stacked
-        ``[n, B·k]`` operand."""
+        ``[n, B·k]`` operand. While a profiler records, each layer's X·W
+        products, its SpMM and the layout copies before and after the SpMM
+        are the ranges ``executor.xw``, ``executor.spmm`` and
+        ``executor.layout``."""
         if xs.dim() != 3:
             raise ValueError(f"requests must be [B, n, f]; got {tuple(xs.shape)}")
         self._check_rows(xs.shape[1], "features")
@@ -487,10 +491,15 @@ class _ExecutorBase:
             k = w.shape[1]
             xw = torch.empty((bsz, h.shape[1], k), device=self.device,
                              dtype=torch.promote_types(h.dtype, w.dtype))
-            for j in range(bsz):
-                torch.matmul(h[j], w, out=xw[j])
-            y = self._spmm_impl(xw.permute(1, 0, 2).reshape(n, bsz * k))
-            h = y.reshape(m, bsz, k).permute(1, 0, 2).contiguous()
+            with tracing.span("executor.xw"):
+                for j in range(bsz):
+                    torch.matmul(h[j], w, out=xw[j])
+            with tracing.span("executor.layout"):
+                b = xw.permute(1, 0, 2).reshape(n, bsz * k)
+            with tracing.span("executor.spmm"):
+                y = self._spmm_impl(b)
+            with tracing.span("executor.layout"):
+                h = y.reshape(m, bsz, k).permute(1, 0, 2).contiguous()
             if i < n_layers - 1:
                 h = torch.relu_(h)
         return h

@@ -30,7 +30,6 @@ Without grad the wrapper launches the kernel directly, as serving does.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 
@@ -38,6 +37,7 @@ import numpy as np
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch import tracing
 from repro_torch.kernels import _build
 
 #: the CUDA sources of the kernel, relative to the repository root: the
@@ -226,8 +226,7 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out = ctx.saved_tensors
-        with (torch.profiler.record_function("attention.vjp")
-              if torch.autograd._profiler_enabled() else contextlib.nullcontext()):
+        with tracing.span("attention.vjp"):
             grads = attention_vjp(q, k, v, out, dout, *ctx.mask)
         return (*grads, None, None, None)
 

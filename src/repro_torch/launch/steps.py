@@ -27,10 +27,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import transformer as tr
-from repro_torch.models.common import profile_range
 from repro_torch.sharding import partition, spmd
 from repro_torch.training import optimizer as opt_mod
 from repro_torch.training.tree import flatten_with_paths, map_with_path, tree_map
@@ -82,12 +82,12 @@ def value_and_grad(cfg: tr.ModelConfig, params: dict, batch: dict,
     leaves = {k: v.detach().requires_grad_(True) for k, v in flat.items()}
     live = map_with_path(lambda path, _: leaves[path], params)
     with torch.enable_grad():
-        with profile_range("train.forward"):
+        with tracing.span("train.forward"):
             logits, aux = tr.model_forward(cfg, live, batch, backend=backend,
                                            compute_dtype=compute_dtype)
-        with profile_range("train.cross_entropy"):
+        with tracing.span("train.cross_entropy"):
             loss = cross_entropy(logits, batch["labels"]) + aux_weight * aux
-        with profile_range("train.backward"):
+        with tracing.span("train.backward"):
             grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
     by_path = {k: torch.zeros_like(v) if g is None else g
                for (k, v), g in zip(leaves.items(), grads)}
@@ -127,7 +127,7 @@ def make_train_step(cfg: tr.ModelConfig, device=None, batch_specs: Optional[dict
             params = spmd.shard_tree(params, pspecs, mesh)
             opt_state = spmd.shard_tree(opt_state, ospecs, mesh)
             loss, grads = mesh_value_and_grad(cfg, mesh, params, batch, aux_weight)
-            with profile_range("train.optimizer"):
+            with tracing.span("train.optimizer"):
                 params, opt_state, metrics = mesh_adamw_update(opt_cfg, params, grads,
                                                                opt_state)
             return params, opt_state, dict(metrics, loss=loss)
@@ -140,7 +140,7 @@ def make_train_step(cfg: tr.ModelConfig, device=None, batch_specs: Optional[dict
             _check_batch(batch, batch_specs)
         batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
         loss, grads = value_and_grad(cfg, params, batch, aux_weight)
-        with profile_range("train.optimizer"):
+        with tracing.span("train.optimizer"):
             params, opt_state, metrics = opt_mod.adamw_update(opt_cfg, grads, opt_state)
         return params, opt_state, dict(metrics, loss=loss)
 
@@ -238,7 +238,7 @@ def mesh_value_and_grad(cfg: tr.ModelConfig, mesh: Mesh, params: dict, batch: di
     dev0, loss = spmd.first_device(mesh), None
     if cfg.moe is not None and len(shards) > 1:
         run.route_globally(len(shards), n_rows * shards[0][2]["tokens"].shape[1])
-        with torch.no_grad(), spmd.mesh_hints(mesh), profile_range("train.routing"):
+        with torch.no_grad(), spmd.mesh_hints(mesh), tracing.span("train.routing"):
             for d, _, rows in shards:
                 tr.model_forward(cfg, run.at(d), rows, compute_dtype=compute_dtype,
                                  ops=run.ops(d))
@@ -247,15 +247,15 @@ def mesh_value_and_grad(cfg: tr.ModelConfig, mesh: Mesh, params: dict, batch: di
         for d, (lo, hi), rows in shards:
             run.uses = []
             with torch.enable_grad():
-                with profile_range("train.forward"):
+                with tracing.span("train.forward"):
                     logits, aux = tr.model_forward(cfg, run.at(d), rows,
                                                    compute_dtype=compute_dtype,
                                                    ops=run.ops(d))
-                with profile_range("train.cross_entropy"):
+                with tracing.span("train.cross_entropy"):
                     part = (cross_entropy(logits, rows["labels"]) + aux_weight * aux) * (
                         (hi - lo) / n_rows)
                 del logits
-                with profile_range("train.backward"):
+                with tracing.span("train.backward"):
                     grads = torch.autograd.grad(part, [u[2] for u in run.uses],
                                                 allow_unused=True)
             run.scatter_grads(acc, grads, d)

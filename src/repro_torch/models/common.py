@@ -7,8 +7,6 @@ in float64 for float64 inputs, a reference run).
 
 from __future__ import annotations
 
-from contextlib import nullcontext
-
 import torch
 import torch.nn.functional as F
 
@@ -86,10 +84,3 @@ def activation_fn(name: str):
         "tanh": torch.tanh,
     }[name]
 
-
-def profile_range(name: str):
-    """A ``torch.profiler`` range named ``name`` while a profiler records
-    (its kernels then carry the name on the device timeline); otherwise a
-    no-op that costs one flag check."""
-    return (torch.profiler.record_function(name) if torch.autograd._profiler_enabled()
-            else nullcontext())

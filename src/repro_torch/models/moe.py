@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch import tracing
 from repro_torch.models import common
 
 
@@ -181,7 +182,7 @@ def route(p: dict, dims: MoEDims, x: torch.Tensor,
     if prior is not None and g != 1:
         raise ValueError("a RoutePrior routes one dispatch group (n_groups 1)")
     tg = t // g
-    with common.profile_range("moe.router"):
+    with tracing.span("moe.router"):
         xt = x.reshape(g, tg, d)
         logits = (xt @ p["router"].to(xt.dtype)).float()
         probs = torch.softmax(logits, dim=-1)                          # [G,Tg,E]
@@ -198,7 +199,7 @@ def route(p: dict, dims: MoEDims, x: torch.Tensor,
                 0, expert_ids.reshape(-1),
                 torch.full((t * k,), 1.0 / (t * k), device=x.device))
         aux = e * torch.sum(me * ce)
-    with common.profile_range("moe.dispatch"):
+    with tracing.span("moe.dispatch"):
         flat_e = expert_ids.reshape(g, tg * k)                          # [G,TKg]
         pos = rank_within(flat_e)
         if placement is None:  # the static layout: slot e hosts expert e
@@ -257,7 +258,7 @@ def moe_apply(p: dict, dims: MoEDims, x: torch.Tensor, r: Routing,
     g, tgk = r.slot.shape
     tg = tgk // k
     act = common.activation_fn(dims.activation)
-    with common.profile_range("moe.dispatch"):
+    with tracing.span("moe.dispatch"):
         if prior is None:
             rows, local = r.capacity, r.pos
         else:
@@ -268,7 +269,7 @@ def moe_apply(p: dict, dims: MoEDims, x: torch.Tensor, r: Routing,
         src = xt.repeat_interleave(k, dim=1) * r.keep[..., None].to(x.dtype)
         buf = torch.zeros((g, n_slots, rows, d), dtype=x.dtype, device=x.device)
         buf.index_put_((gi, r.slot, pos_c), src, accumulate=True)
-    with common.profile_range("moe.experts"):
+    with tracing.span("moe.experts"):
         w = _slot_weights(p, dims, placement, x.dtype)
         h = torch.einsum("gscd,sdf->gscf", buf, w[0])
         if dims.glu:
@@ -276,7 +277,7 @@ def moe_apply(p: dict, dims: MoEDims, x: torch.Tensor, r: Routing,
         else:
             h = act(h)
         out_buf = torch.einsum("gscf,sfd->gscd", h, w[1])             # [G,S,C,d]
-    with common.profile_range("moe.combine"):
+    with tracing.span("moe.combine"):
         # the adder tree: weighted gather back to tokens
         gathered = out_buf[gi, r.slot, pos_c]                           # [G,TKg,d]
         gathered = gathered * (r.gate_w.reshape(g, tgk)[..., None].to(x.dtype)

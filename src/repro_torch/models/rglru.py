@@ -35,6 +35,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.models import common
 
 _C = 8.0
@@ -119,7 +120,7 @@ def rglru_forward(p: dict, dims: RGLRUDims, x: torch.Tensor, state: dict) -> tup
     (out [B, S, d] in x's dtype, the new state)."""
     gate = F.gelu(x @ p["w_gate_branch"].to(x.dtype), approximate="tanh")
     u = x @ p["w_x"].to(x.dtype)
-    with common.profile_range("rglru.conv"):
+    with tracing.span("rglru.conv"):
         u, conv_state = _causal_conv(u, p["conv_w"], p["conv_b"], state["conv"])
 
     uf = u.float()
@@ -128,7 +129,7 @@ def rglru_forward(p: dict, dims: RGLRUDims, x: torch.Tensor, state: dict) -> tup
     # log σ(Λ)^(c·r), with jax.nn.softplus's logaddexp(Λ, 0)
     log_a = -_C * r * torch.logaddexp(p["lam"], torch.zeros_like(p["lam"]))
     a_t = torch.exp(log_a)
-    with common.profile_range("rglru.scan"):
+    with tracing.span("rglru.scan"):
         hs, h_last = _lru_scan(a_t, i * uf, state["h"].float())
 
     out = (hs.to(x.dtype) * gate) @ p["w_out"].to(x.dtype)

@@ -47,6 +47,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.models import common
 
 #: tokens a chunk of ``wkv_chunked``. At rwkv6-3b's prefill shape on an
@@ -206,7 +207,7 @@ def rwkv_time_mix(p: dict, dims: RWKVDims, x: torch.Tensor, x_prev: torch.Tensor
     b, s, _ = x.shape
     h, dh = dims.n_heads, dims.d_head
     shifted = torch.cat([x_prev.to(x.dtype), x[:, :-1]], dim=1)
-    with common.profile_range("rwkv.ddlerp"):
+    with tracing.span("rwkv.ddlerp"):
         xr, xk, xv, xw, xg = _ddlerp(p, x, shifted)
 
     r = (xr @ p["wr"].to(x.dtype)).reshape(b, s, h, dh)
@@ -218,7 +219,7 @@ def rwkv_time_mix(p: dict, dims: RWKVDims, x: torch.Tensor, x_prev: torch.Tensor
     log_w = -torch.exp(decay).reshape(b, s, h, dh)  # log w, w = exp(-exp(decay))
 
     args = (r.to(wide), k.to(wide), v.to(wide), log_w, p["u"].to(wide), state.to(wide))
-    with common.profile_range("rwkv.wkv"):
+    with tracing.span("rwkv.wkv"):
         out, state = (wkv_sequential(*args) if chunk is None
                       else wkv_chunked(*args, chunk=chunk))
     # per-head group norm

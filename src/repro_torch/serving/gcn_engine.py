@@ -66,6 +66,14 @@ Every scheduling choice — placement, replica growth and shrinkage,
 shedding, queue ordering and dueness — goes through the
 ``serving.policy.SchedulingPolicy`` seam.
 
+While a profiler records, the engine opens ``repro_torch.tracing`` ranges:
+``gcn_engine.queued`` for each request's wait on its queue (from the
+``submit`` that queued it until its batch is dispatched, it is shed, or its
+graph is removed; open across a failed dispatch), ``gcn_engine.dispatch``
+around each dispatch attempt, ``gcn_engine.stack`` around the copy of a
+batch into one operand, and ``gcn_engine.await`` around the wait for a
+batch's completion.
+
 The engine bypasses ``tuning.registry``'s unbounded fingerprint caches for
 its executors — eviction must actually free device memory, so the engine's
 executor references are the only ones.
@@ -84,6 +92,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import csc as fmt
 from repro_torch.core.executor import (
     FAULTS,
@@ -215,11 +224,19 @@ class UpdateReport:
 
 @dataclasses.dataclass
 class _Request:
-    """One queued inference request."""
+    """One queued inference request. ``span`` is its ``gcn_engine.queued``
+    profiler range while it waits (``tracing.open_span``; None when no
+    profiler recorded as it was queued)."""
     rid: int
     x: torch.Tensor
     submit_t: float  # monotonic seconds
     deadline: Optional[float]  # absolute monotonic; None = no SLA
+    span: object = None
+
+    def end_wait(self) -> None:
+        """Close the queue-wait range: the request leaves the queue."""
+        tracing.close_span(self.span)
+        self.span = None
 
 
 @dataclasses.dataclass
@@ -784,6 +801,8 @@ class GCNServingEngine:
         self.device_bytes_in_use -= freed
         self.placer.forget(graph_id)
         release_device_steps(rec.sched)
+        for r in dropped:
+            r.end_wait()
         if dropped:
             self._count("dropped", len(dropped))
             raise RequestFailure(
@@ -1468,7 +1487,8 @@ class GCNServingEngine:
         if isinstance(xs, torch.Tensor) and xs.dim() == 3:
             xb = xs
         else:
-            xb = torch.stack([torch.as_tensor(x) for x in xs])
+            with tracing.span("gcn_engine.stack"):
+                xb = torch.stack([torch.as_tensor(x) for x in xs])
         n = rec.sched.shape[1]
         if xb.shape[1] != n:
             raise ValueError(
@@ -1503,17 +1523,20 @@ class GCNServingEngine:
             parts.append(part)
         return parts
 
-    def _dispatch_with_retry(self, graph_id: str, xs) -> List[_Part]:
+    def _dispatch_with_retry(self, graph_id: str, xs, rids=None) -> List[_Part]:
         """Dispatch with bounded retry + exponential backoff for
         *transient* failures (device hiccups, injected faults). A failed
         attempt charges nothing, so retrying is free of bookkeeping.
         Validation errors — unknown graph, wrong shape — are permanent
         and re-raise immediately; after ``max_dispatch_retries`` retries
-        the last transient error propagates to the caller."""
+        the last transient error propagates to the caller. Each attempt is
+        one ``gcn_engine.dispatch`` profiler range, labelled with ``rids``,
+        the batch's request ids."""
         delay = self.retry_backoff_s
         for attempt in range(self.max_dispatch_retries + 1):
             try:
-                return self._dispatch_batch(graph_id, xs)
+                with tracing.span("gcn_engine.dispatch", {"rids": rids}):
+                    return self._dispatch_batch(graph_id, xs)
             except (KeyError, ValueError, TypeError):
                 raise
             except Exception:
@@ -1568,48 +1591,49 @@ class GCNServingEngine:
         retries. Every part settles its outstanding-work charge exactly
         once, success or failure; no future is left unawaited and the
         served-work counters are untouched here."""
-        outs: List[Tuple[int, object]] = []
-        failures: List[_PartFailure] = []
-        settled = set()
-        try:
-            for part in parts:
-                try:
-                    if part.future is not None:
-                        out = part.future.result()
+        with tracing.span("gcn_engine.await"):
+            outs: List[Tuple[int, object]] = []
+            failures: List[_PartFailure] = []
+            settled = set()
+            try:
+                for part in parts:
+                    try:
+                        if part.future is not None:
+                            out = part.future.result()
+                        else:
+                            out = _block_until_ready(part.out, part.event)
+                    except Exception as e:
+                        self._charge(part, -1)
+                        settled.add(id(part))
+                        out, e = self._retry_part(graph_id, part, e)
+                        if out is None:
+                            failures.append(_PartFailure(part.offset, part.n, e))
+                            continue
                     else:
-                        out = _block_until_ready(part.out, part.event)
-                except Exception as e:
-                    self._charge(part, -1)
-                    settled.add(id(part))
-                    out, e = self._retry_part(graph_id, part, e)
-                    if out is None:
-                        failures.append(_PartFailure(part.offset, part.n, e))
-                        continue
-                else:
-                    self._charge(part, -1)
-                    settled.add(id(part))
-                outs.append((part.offset, out))
-        finally:
-            # an unexpected escape (e.g. KeyboardInterrupt) must still
-            # settle every remaining charge — never a leaked meter
-            for part in parts:
-                if id(part) not in settled:
-                    self._charge(part, -1)
-        if not outs:
-            return None, failures
-        outs.sort(key=lambda t: t[0])
-        p = self.placer.placement_of(graph_id)
-        if len(outs) == 1 and not failures:
-            # a replicated graph's output always lands on the primary's
-            # device, even when a single least-loaded secondary (or a
-            # sibling retry) served the whole batch — which replica served
-            # must stay unobservable, placement included
-            if p.kind == REPLICATED:
-                return outs[0][1].to(self.devices[p.device_index]), failures
-            return outs[0][1], failures
-        target = (self.devices[p.device_index] if p.device_index is not None
-                  else outs[0][1].device)
-        return torch.cat([o.to(target) for _, o in outs], dim=0), failures
+                        self._charge(part, -1)
+                        settled.add(id(part))
+                    outs.append((part.offset, out))
+            finally:
+                # an unexpected escape (e.g. KeyboardInterrupt) must still
+                # settle every remaining charge — never a leaked meter
+                for part in parts:
+                    if id(part) not in settled:
+                        self._charge(part, -1)
+            if not outs:
+                return None, failures
+            outs.sort(key=lambda t: t[0])
+            p = self.placer.placement_of(graph_id)
+            if len(outs) == 1 and not failures:
+                # a replicated graph's output always lands on the primary's
+                # device, even when a single least-loaded secondary (or a
+                # sibling retry) served the whole batch — which replica served
+                # must stay unobservable, placement included
+                if p.kind == REPLICATED:
+                    return outs[0][1].to(self.devices[p.device_index]), failures
+                return outs[0][1], failures
+            target = (self.devices[p.device_index] if p.device_index is not None
+                      else outs[0][1].device)
+            return torch.cat([o.to(target) for _, o in outs], dim=0), failures
 
     def _note_service(self, gid: str, svc_s: float, n_requests: int) -> None:
         """Fold one completed batch into the per-batch and per-request
@@ -1714,7 +1738,8 @@ class GCNServingEngine:
         rid = self._next_rid
         self._next_rid += 1
         self._pending.setdefault(graph_id, []).append(
-            _Request(rid=rid, x=x, submit_t=now, deadline=deadline)
+            _Request(rid=rid, x=x, submit_t=now, deadline=deadline,
+                     span=tracing.open_span("gcn_engine.queued", {"rid": rid}))
         )
         if len(self._pending[graph_id]) >= self.max_batch:
             # a queue hot enough to hit the threshold is the saturation
@@ -1813,6 +1838,7 @@ class GCNServingEngine:
                         r.deadline is not None
                         and self.policy.shed_at_dispatch(state, gid, r.deadline).shed
                     ):
+                        r.end_wait()
                         self._count("shed")
                     else:
                         keep.append(r)
@@ -1821,11 +1847,14 @@ class GCNServingEngine:
                     continue
             t_disp = time.monotonic()
             try:
-                parts = self._dispatch_with_retry(gid, [r.x for r in reqs])
+                parts = self._dispatch_with_retry(
+                    gid, [r.x for r in reqs], [r.rid for r in reqs])
             except Exception as e:
                 failures[gid] = e
                 restore(gid, reqs)
                 continue
+            for r in reqs:
+                r.end_wait()
             inflight.append((gid, reqs, parts, t_disp))
         t_prev = None
         for gid, reqs, parts, t_disp in inflight:
