@@ -35,6 +35,7 @@ The executor serves inference: its methods record no autograd graph.
 from __future__ import annotations
 
 from collections import OrderedDict
+from functools import reduce
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -418,6 +419,41 @@ def _spliced_host_slots(old_host, new_sched: Schedule, repair):
     return take(og, fg, np.int32), take(ot, ft, np.int32), take(ov, fv, ov.dtype), moved
 
 
+class RequestBatch(tuple):
+    """A batch of requests as the ``[n, f]`` tensors they came as, in order:
+    what ``forward_batch`` reads where a ``[B, n, f]`` operand would
+    otherwise be stacked from them. ``shape`` is that operand's; a slice is
+    a batch too (a replica's chunk)."""
+
+    @property
+    def shape(self) -> torch.Size:
+        return torch.Size((len(self), *self[0].shape))
+
+    def __getitem__(self, i):
+        got = tuple.__getitem__(self, i)
+        return RequestBatch(got) if isinstance(i, slice) else got
+
+
+def request_batch(xs):
+    """``xs`` in the form ``forward_batch`` reads: a ``[B, n, f]`` tensor
+    as it is, any other sequence as a ``RequestBatch`` of its requests
+    (``torch.as_tensor``: no copy). Raises ``ValueError``, before anything
+    is launched, for a tensor that is not 3-D, an empty batch, or requests
+    that are not all of one ``[n, f]`` shape."""
+    if isinstance(xs, torch.Tensor):
+        if xs.dim() != 3:
+            raise ValueError(f"requests must be [B, n, f]; got {tuple(xs.shape)}")
+        return xs
+    if not isinstance(xs, RequestBatch):
+        xs = RequestBatch(torch.as_tensor(x) for x in xs)
+    if not xs:
+        raise ValueError("a batch needs at least one request")
+    shapes = {tuple(x.shape) for x in xs}
+    if len(shapes) != 1 or len(xs[0].shape) != 2:
+        raise ValueError(f"requests must share one [n, f] shape; got {sorted(shapes)}")
+    return xs
+
+
 class _ExecutorBase:
     """Shared surface of the single- and multi-device executors: operand
     validation, the commit to the executor's device, and the whole-GCN
@@ -467,30 +503,33 @@ class _ExecutorBase:
         return self._forward_impl(params, self.commit(x))
 
     @torch.no_grad()
-    def forward_batch(self, params: dict, xs: torch.Tensor) -> torch.Tensor:
-        """Logits of a batch of requests ``xs [B, n, f]`` → ``[B, m, c]``:
-        the port of the serving engine's ``vmap`` of ``_forward_impl``. Each
-        request's X·W is its own product, of the shape ``forward`` takes, so
-        a request's logits do not depend on the batch it came in (a replica
-        that serves part of a batch gives the bits the whole batch would);
-        each layer's SpMM then runs once on the requests' column-stacked
-        ``[n, B·k]`` operand. While a profiler records, each layer's X·W
-        products, its SpMM and the layout copies before and after the SpMM
-        are the ranges ``executor.xw``, ``executor.spmm`` and
-        ``executor.layout``."""
-        if xs.dim() != 3:
-            raise ValueError(f"requests must be [B, n, f]; got {tuple(xs.shape)}")
+    def forward_batch(self, params: dict, xs) -> torch.Tensor:
+        """Logits of a batch of requests → ``[B, m, c]``: the port of the
+        serving engine's ``vmap`` of ``_forward_impl``. ``xs`` is a
+        ``[B, n, f]`` tensor or a sequence of ``B`` requests of one
+        ``[n, f]`` shape (``request_batch``); a request of the sequence is
+        committed to the executor's device on its own (no copy where it is
+        there already) and its first X·W reads it where it lies, so no
+        ``[B, n, f]`` operand is ever put together. Each request's X·W is
+        its own product, of the shape ``forward`` takes, so a request's
+        logits do not depend on the batch it came in (a replica that serves
+        part of a batch gives the bits the whole batch would); each layer's
+        SpMM then runs once on the requests' column-stacked ``[n, B·k]``
+        operand. While a profiler records, each layer's X·W products, its
+        SpMM and the layout copies before and after the SpMM are the ranges
+        ``executor.xw``, ``executor.spmm`` and ``executor.layout``."""
+        xs = request_batch(xs)
         self._check_rows(xs.shape[1], "features")
         params = {name: self.commit(w) for name, w in params.items()}
-        h = self.commit(xs)
+        h = self._commit_requests(xs)
         m, n = self.sched.shape
-        bsz = xs.shape[0]
+        bsz = len(h)
         n_layers = len(params)
         for i in range(n_layers):
             w = params[f"w{i}"]
             k = w.shape[1]
             xw = torch.empty((bsz, h.shape[1], k), device=self.device,
-                             dtype=torch.promote_types(h.dtype, w.dtype))
+                             dtype=torch.promote_types(h[0].dtype, w.dtype))
             with tracing.span("executor.xw"):
                 for j in range(bsz):
                     torch.matmul(h[j], w, out=xw[j])
@@ -503,6 +542,16 @@ class _ExecutorBase:
             if i < n_layers - 1:
                 h = torch.relu_(h)
         return h
+
+    def _commit_requests(self, xs):
+        """A batch on this executor's device: a ``[B, n, f]`` tensor as
+        ``commit`` moves it; a ``RequestBatch`` request by request, in the
+        dtype ``torch.stack`` would give them all (each a no-op where the
+        request is there already in that dtype)."""
+        if isinstance(xs, torch.Tensor):
+            return self.commit(xs)
+        dtype = reduce(torch.promote_types, (x.dtype for x in xs))
+        return RequestBatch(self.commit(x).to(dtype) for x in xs)
 
     def _forward_impl(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         h = x

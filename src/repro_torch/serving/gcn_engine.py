@@ -70,9 +70,10 @@ While a profiler records, the engine opens ``repro_torch.tracing`` ranges:
 ``gcn_engine.queued`` for each request's wait on its queue (from the
 ``submit`` that queued it until its batch is dispatched, it is shed, or its
 graph is removed; open across a failed dispatch), ``gcn_engine.dispatch``
-around each dispatch attempt, ``gcn_engine.stack`` around the copy of a
-batch into one operand, and ``gcn_engine.await`` around the wait for a
-batch's completion.
+around each dispatch attempt, ``gcn_engine.stack`` around the assembly of a
+batch of separate requests (their validation and the list the executor
+reads them from: nothing is copied), and ``gcn_engine.await`` around the
+wait for a batch's completion.
 
 The engine bypasses ``tuning.registry``'s unbounded fingerprint caches for
 its executors — eviction must actually free device memory, so the engine's
@@ -100,6 +101,7 @@ from repro_torch.core.executor import (
     ShardedScheduleExecutor,
     release_device_steps,
     repaired_executor,
+    request_batch,
     value_patched_executor,
 )
 from repro_torch.core.schedule import (
@@ -258,7 +260,9 @@ class _Part:
     replicas. ``est`` is the outstanding-work charge held against
     ``device_index`` until completion. ``unit``/``chunk``/``offset`` let the
     completion path retry this exact sub-batch on a sibling replica and map
-    a terminal failure back to the request-order slice it covered."""
+    a terminal failure back to the request-order slice it covered;
+    ``chunk`` holds the request tensors the batch came as (or views of a
+    caller's ``[B, n, f]`` tensor), so a retry reads the same bits."""
     device_index: Optional[int]
     n: int
     est: float
@@ -544,6 +548,7 @@ class GCNServingEngine:
             "request_failures": 0,
             "dispatch_retries": 0,
             "chunk_retries": 0,
+            "requests_copied": 0,
             "graph_updates": 0,
             "update_retunes": 0,
         }
@@ -1465,30 +1470,44 @@ class GCNServingEngine:
             )
         return self._pool.submit(self._run_unit, unit, graph_id, chunk)
 
+    def _note_copies(self, unit: _Unit, chunk) -> None:
+        """Count the requests of ``chunk`` that are not on ``unit``'s
+        device, so that reaching its X·W takes a copy (``requests_copied``:
+        host arrays, or a chunk routed to a replica on another device)."""
+        dev = unit.executor.device
+        self._count("requests_copied", sum(x.device != dev for x in chunk))
+
     def _dispatch_batch(self, graph_id: str, xs) -> List[_Part]:
-        """Validate + stack ``xs``, ensure residency (LRU touch, re-upload
-        if evicted), route across replicas, and dispatch — **counting
-        nothing**: served-work counters and service EWMAs move only when
-        the completion path proves the computation finished.
+        """Validate ``xs``, ensure residency (LRU touch, re-upload if
+        evicted), route across replicas, and dispatch — **counting
+        nothing** of the served work: served-work counters and service
+        EWMAs move only when the completion path proves the computation
+        finished (``requests_copied`` counts at each hand-over to a clone).
+
+        The batch is not copied into one operand: a sequence of ``[n, f]``
+        requests goes to the executor as a ``RequestBatch`` of the tensors
+        they came as (``torch.as_tensor``), and each request's X·W reads it
+        where it lies; a caller's ``[B, n, f]`` tensor goes as it is. A
+        mismatch of shapes raises ``ValueError`` before anything launches.
 
         A single-clone graph launches its forward here (the launches return
         at once on the card; the event recorded after them is what
         completion awaits, so batches of several graphs queue back to
         back). A replicated graph splits the batch into contiguous even
-        chunks — one per replica, least-outstanding-work replicas first —
-        and runs each chunk on a worker thread. Every replica is a
-        bit-identical clone and a request's logits do not depend on the
-        batch it came in (``forward_batch``), so the split is invisible in
-        the logits."""
+        chunks (slices of the requests) — one per replica,
+        least-outstanding-work replicas first — and runs each chunk on a
+        worker thread. Every replica is a bit-identical clone and a
+        request's logits do not depend on the batch it came in
+        (``forward_batch``), so the split is invisible in the logits."""
         rec = self._graphs.get(graph_id)
         if rec is None:
             raise UnknownGraphError(graph_id, "serve")
         FAULTS.check("dispatch", graph=graph_id)
-        if isinstance(xs, torch.Tensor) and xs.dim() == 3:
-            xb = xs
+        if isinstance(xs, torch.Tensor):
+            xb = request_batch(xs)
         else:
             with tracing.span("gcn_engine.stack"):
-                xb = torch.stack([torch.as_tensor(x) for x in xs])
+                xb = request_batch(xs)
         n = rec.sched.shape[1]
         if xb.shape[1] != n:
             raise ValueError(
@@ -1501,6 +1520,7 @@ class GCNServingEngine:
         if len(units) == 1 or b == 1:
             unit = units[0]
             out = unit.executor.forward_batch(unit.params, xb)
+            self._note_copies(unit, xb)
             event = None
             if out.is_cuda:
                 event = torch.cuda.Event()
@@ -1518,6 +1538,7 @@ class GCNServingEngine:
             part = _Part(unit.device_index, size, per_req * size,
                          future=self._pool_run(unit, graph_id, chunk),
                          unit=unit, chunk=chunk, offset=offset)
+            self._note_copies(unit, chunk)
             offset += size
             self._charge(part, +1)
             parts.append(part)
@@ -1570,6 +1591,7 @@ class GCNServingEngine:
             self._count("chunk_retries")
             retry = _Part(unit.device_index, part.n, part.est)
             self._charge(retry, +1)
+            self._note_copies(unit, part.chunk)
             try:
                 return self._run_unit(unit, graph_id, part.chunk), None
             except Exception as e:
@@ -1656,14 +1678,18 @@ class GCNServingEngine:
     def serve_batch(self, graph_id: str, xs) -> torch.Tensor:
         """One forward over a batch of same-graph feature matrices.
 
-        ``xs`` is a sequence of ``[n, f]`` arrays (or a stacked
-        ``[B, n, f]`` tensor); returns stacked ``[B, n, classes]`` logits
-        on the engine's device. The deadline scheduler serves queues
-        through this same dispatch path, so auto-flushed batches are
-        bit-identical to direct calls. ``batches``/``requests`` count
-        **only after the computation completes**. Transient dispatch
-        failures retry with bounded backoff; a batch that still cannot
-        complete raises a typed ``RequestFailure``."""
+        ``xs`` is a sequence of ``[n, f]`` arrays or tensors, all of one
+        shape, or a stacked ``[B, n, f]`` tensor; returns stacked
+        ``[B, n, classes]`` logits on the engine's device. A sequence is
+        never stacked: each request's first X·W reads the tensor it came as
+        (``torch.as_tensor``, no copy; a request not on the serving device
+        is moved there on its own and counted in ``requests_copied``). The
+        deadline scheduler serves queues through this same dispatch path,
+        so auto-flushed batches are bit-identical to direct calls.
+        ``batches``/``requests`` count **only after the computation
+        completes**. Transient dispatch failures retry with bounded backoff;
+        a batch that still cannot complete raises a typed
+        ``RequestFailure``."""
         t0 = time.monotonic()
         parts = self._dispatch_with_retry(graph_id, xs)
         out, part_failures = self._await_batch(graph_id, parts)

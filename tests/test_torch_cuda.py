@@ -330,6 +330,33 @@ def test_engine_warm_start_on_the_card(dev, tmp_path, monkeypatch):
     assert torch.equal(eng2.flush()["g"], out)
 
 
+def test_engine_counts_host_requests_it_copies_to_the_card(dev, tmp_path):
+    """Requests already on the card reach X·W with no copy; a host array or
+    a host tensor is moved on its own, and ``requests_copied`` counts it."""
+    from repro_torch.serving.gcn_engine import GCNServingEngine
+
+    a = tsynth.power_law_adjacency(3000, 0.005, 1.0, seed=6)
+    rng = np.random.default_rng(6)
+    params = tgcn.params_from_jax({
+        "w0": rng.uniform(-0.3, 0.3, (32, 16)).astype(np.float32),
+        "w1": rng.uniform(-0.3, 0.3, (16, 5)).astype(np.float32)}, dev)
+    kw = dict(iters=1, warmup=1, bf16_report=False, sweep=[dict(
+        nnz_per_step=128, rows_per_window=32, cols_per_block=None, window_nnz=None,
+        routing="gather")])
+    eng = GCNServingEngine(store_root=tmp_path, autotune_kwargs=kw)
+    eng.add_graph("g", a, params)
+    host = rng.random((3000, 32)).astype(np.float32)
+    on_card = torch.from_numpy(host).to(dev)
+    ref = eng.serve_batch("g", [on_card, on_card])
+    eng.submit("g", on_card)
+    eng.flush()
+    assert eng.stats()["requests_copied"] == 0
+    out = eng.serve_batch("g", [host, on_card, torch.from_numpy(host)])
+    assert eng.stats()["requests_copied"] == 2
+    for i in range(3):
+        torch.testing.assert_close(out[i], ref[0])
+
+
 # ---------------------------------------------------------------------------
 # streaming updates on the card: repaired and value-patched executors
 # ---------------------------------------------------------------------------

@@ -118,6 +118,25 @@ def test_a_stacked_batch_opens_no_stack_range(served):
     assert not _ranges(prof, QUEUED)  # a direct batch waits on no queue
 
 
+@pytest.mark.parametrize("path", ["serve_batch", "flush"])
+def test_a_list_batch_opens_one_stack_range_with_nothing_run_in_it(served, path):
+    eng = served()
+    xs = [x(0), x(1)]
+    with _profile() as prof:
+        if path == "serve_batch":
+            eng.serve_batch("g", xs)
+        else:
+            for xi in xs:
+                eng.submit("g", xi)
+            eng.flush()
+    stack = _ranges(prof, "gcn_engine.stack")
+    assert len(stack) == 1
+    inside = {e.name for e in prof.events() if e.name.startswith("aten::")
+              and _within((e.time_range.start, e.time_range.end), stack)}
+    copies = ("stack", "cat", "copy", "clone", "empty")
+    assert not {n for n in inside if any(w in n for w in copies)}, inside
+
+
 def test_one_queued_range_per_accepted_request_with_its_rid(served, entered):
     eng = served(max_batch=4)
     with _profile() as prof:

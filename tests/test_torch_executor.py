@@ -117,6 +117,67 @@ def test_forward_and_forward_batch_match_vmapped_reference(routing):
         np.testing.assert_allclose(got_i, want_i, atol=1e-4)
 
 
+@pytest.mark.parametrize("routing", ["gather", "onehot"])
+def test_forward_batch_on_a_list_is_bit_equal_to_the_stacked_batch(routing):
+    ta, _ = _pair(150, 0.04, 1.0, seed=9)
+    sched = tsched.build_balanced_schedule(ta, 16, 8, evil_threshold=8)
+    ex = texe.ScheduleExecutor(sched, routing=routing, device="cpu")
+    params = tgcn.params_from_jax(_params([20, 16, 5]), "cpu")
+    xs = [torch.from_numpy(x) for x in
+          np.random.default_rng(2).random((3, 150, 20)).astype(np.float32)]
+    stacked = ex.forward_batch(params, torch.stack(xs))
+    for batch in (xs, tuple(xs), texe.RequestBatch(xs)):
+        got = ex.forward_batch(params, batch)
+        assert got.shape == (3, 150, 5) and got.is_contiguous()
+        assert torch.equal(got, stacked)
+    for i, x in enumerate(xs):
+        assert torch.equal(ex.forward(params, x), stacked[i])
+    # a slice of a batch is a batch (a replica's chunk), of the same bits
+    chunk = texe.RequestBatch(xs)[1:]
+    assert isinstance(chunk, texe.RequestBatch) and chunk.shape == (2, 150, 20)
+    assert torch.equal(ex.forward_batch(params, chunk), stacked[1:])
+
+
+def test_request_batch_reads_requests_where_they_lie():
+    xs = [torch.rand(7, 3), np.ones((7, 3), np.float32)]
+    batch = texe.request_batch(xs)
+    assert isinstance(batch, texe.RequestBatch) and batch.shape == (2, 7, 3)
+    assert batch[0] is xs[0]  # the request itself, not a copy
+    assert np.shares_memory(batch[1].numpy(), xs[1])
+    stacked = torch.stack([torch.as_tensor(x) for x in xs])
+    assert texe.request_batch(stacked) is stacked
+    assert texe.request_batch(batch) is batch
+
+
+@pytest.mark.parametrize("xs, match", [
+    ([torch.zeros(100, 4), torch.zeros(100, 3)], r"one \[n, f\] shape"),
+    ([torch.zeros(100, 4), torch.zeros(99, 4)], r"one \[n, f\] shape"),
+    ([torch.zeros(100, 4, 1)], r"one \[n, f\] shape"),
+    ([], "at least one request"),
+    (torch.zeros(100, 4), r"\[B, n, f\]"),
+], ids=["features", "rows", "3-d-request", "empty", "2-d-tensor"])
+def test_forward_batch_of_mismatched_requests_raises_before_launching(
+        xs, match, monkeypatch):
+    ta, _ = _pair(100, 0.05, 0.9, seed=1)
+    ex = texe.ScheduleExecutor(tsched.build_balanced_schedule(ta, 16, 8), device="cpu")
+    params = tgcn.params_from_jax(_params([4, 3]), "cpu")
+    launched = []
+    monkeypatch.setattr(torch, "matmul", lambda *a, **k: launched.append("xw"))
+    monkeypatch.setattr(ex, "_spmm_impl", lambda b: launched.append("spmm"))
+    with pytest.raises(ValueError, match=match):
+        ex.forward_batch(params, xs)
+    assert launched == []
+
+
+def test_forward_batch_promotes_a_mixed_batch_as_stack_would():
+    ta, _ = _pair(100, 0.05, 0.9, seed=1)
+    ex = texe.ScheduleExecutor(tsched.build_balanced_schedule(ta, 16, 8), device="cpu")
+    params = tgcn.params_from_jax(_params([4, 3]), "cpu")
+    xs = [torch.rand(100, 4).to(torch.bfloat16), torch.rand(100, 4)]
+    assert torch.equal(ex.forward_batch(params, xs),
+                       ex.forward_batch(params, torch.stack(xs)))
+
+
 def test_bf16_accumulate_matches_reference_on_cpu():
     ta, ja = _pair(200, 0.03, 0.9, seed=2)
     ts = tsched.build_balanced_schedule(ta, **KW)

@@ -52,6 +52,9 @@ FAST_SWEEP = [
 ]
 FAST_KW = dict(iters=1, warmup=1, sweep=FAST_SWEEP, bf16_report=False)
 TOL = 1e-3  # the reference engine tests' tolerance
+#: counters the port keeps and the reference does not: ``requests_copied``
+#: (requests whose features had to be copied to the serving device)
+PORT_COUNTERS = {"requests_copied"}
 
 
 class W(NamedTuple):
@@ -165,8 +168,8 @@ def test_engine_matches_reference_engine_decision_for_decision(tmp_path, monkeyp
     keys = ("submitted", "queue_served", "rejected", "shed", "batches", "requests",
             "store_misses", "store_hits", "evictions")
     assert {k: eng.counters[k] for k in keys} == {k: jeng.counters[k] for k in keys}
-    assert set(eng.counters) == set(jeng.counters)
-    assert set(eng.stats()) == set(jeng.stats())
+    assert set(eng.counters) == set(jeng.counters) | PORT_COUNTERS
+    assert set(eng.stats()) == set(jeng.stats()) | PORT_COUNTERS
 
 
 def test_restart_warm_start_zero_sweeps_zero_rebuilds(tmp_path, monkeypatch):
@@ -812,6 +815,133 @@ def test_single_device_engine_serves_on_its_device(tmp_path):
     assert eng.devices == [torch.device("cpu")]
     assert eng._graphs["g"].executor.device == torch.device("cpu")
     assert eng.infer("g", w.x).device == torch.device("cpu")
+
+
+# ---------------------------------------------------------------------------
+# The copy-free batch: each request reaches X·W from the tensor it came as
+# ---------------------------------------------------------------------------
+
+ONE_CANDIDATE = dict(FAST_KW, sweep=FAST_SWEEP[:1])
+
+
+def _forbid_stack_in_dispatch(eng, monkeypatch):
+    """Make ``torch.stack`` and ``torch.cat`` raise while ``eng`` dispatches
+    a batch; returns the graph ids of the dispatches seen."""
+    inside, seen = [], []
+    dispatch = eng._dispatch_batch
+
+    def watched(graph_id, xs):
+        inside.append(graph_id)
+        seen.append(graph_id)
+        try:
+            return dispatch(graph_id, xs)
+        finally:
+            inside.pop()
+
+    def forbid(name, fn):
+        def f(*a, **k):
+            if inside:
+                pytest.fail(f"torch.{name} on the dispatch path")
+            return fn(*a, **k)
+        return f
+
+    monkeypatch.setattr(eng, "_dispatch_batch", watched)
+    monkeypatch.setattr(torch, "stack", forbid("stack", torch.stack))
+    monkeypatch.setattr(torch, "cat", forbid("cat", torch.cat))
+    return seen
+
+
+@pytest.mark.parametrize("path", ["serve_batch", "flush", "auto_flush"])
+def test_a_batch_reaches_x_w_with_no_stack_or_cat(tmp_path, monkeypatch, path):
+    w = _workload(60)
+    eng = _engine(tmp_path, max_batch=2 if path == "auto_flush" else 32)
+    eng.add_graph("g", w.a, w.params)
+    xs = [torch.from_numpy(w.x), torch.from_numpy(w.x * 0.5)]
+    ref = eng.serve_batch("g", torch.stack(xs))
+    seen = _forbid_stack_in_dispatch(eng, monkeypatch)
+    reads, matmul = [], torch.matmul
+
+    def xw(a, b, **k):
+        reads.append(a.data_ptr())
+        return matmul(a, b, **k)
+
+    monkeypatch.setattr(torch, "matmul", xw)
+    if path == "serve_batch":
+        out = eng.serve_batch("g", xs)
+    else:
+        for x in xs:
+            assert eng.submit("g", x).accepted
+        out = eng.flush()["g"]
+    assert seen == ["g"] and torch.equal(out, ref)
+    # the first layer's X·W read each request where it lies
+    assert reads[:2] == [x.data_ptr() for x in xs]
+    assert eng.counters["dispatch_retries"] == 0
+    assert eng.stats()["requests_copied"] == 0
+
+
+@pytest.mark.parametrize("path", ["serve_batch", "flush"])
+def test_a_batch_of_mixed_shapes_raises_value_error_and_launches_nothing(
+        tmp_path, monkeypatch, path):
+    w = _workload(61)
+    eng = _engine(tmp_path)
+    eng.add_graph("g", w.a, w.params)
+    monkeypatch.setattr(ge, "_sleep", lambda s: pytest.fail("backoff on a caller bug"))
+    monkeypatch.setattr(texe.ScheduleExecutor, "forward_batch",
+                        lambda *a: pytest.fail("a mismatched batch was launched"))
+    narrow = np.random.default_rng(1).random((N_NODES, N_FEATS - 1)).astype(np.float32)
+    if path == "serve_batch":
+        with pytest.raises(ValueError, match=r"one \[n, f\] shape"):
+            eng.serve_batch("g", [w.x, narrow])
+    else:
+        assert eng.submit("g", w.x).accepted and eng.submit("g", narrow).accepted
+        with pytest.raises(FlushError) as ei:
+            eng.flush()
+        assert isinstance(ei.value.failures["g"], ValueError)
+        assert [r.x.shape[1] for r in eng._pending["g"]] == [N_FEATS, N_FEATS - 1]
+    assert eng.counters["dispatch_retries"] == 0 and eng.counters["batches"] == 0
+    _outstanding_settled(eng)
+
+
+def test_replicated_batches_and_sibling_retries_give_the_unreplicated_logits(
+        tmp_path, monkeypatch):
+    w = _workload(62)
+    reqs = [torch.from_numpy(w.x * (1.0 - 0.05 * i)) for i in range(6)]
+    one = _engine(tmp_path, autotune_kwargs=ONE_CANDIDATE)
+    one.add_graph("g", w.a, w.params)
+    ref = one.serve_batch("g", reqs)
+    eng = ge.GCNServingEngine(store_root=tmp_path, devices=["cpu"] * 3, max_replicas=3,
+                              replicate_after_s=1e-6, replica_shrink_after=10**6,
+                              autotune_kwargs=ONE_CANDIDATE)
+    eng.add_graph("g", w.a, w.params)
+    assert torch.equal(eng.serve_batch("g", reqs), ref)
+    for _ in range(3):
+        for r in reqs:
+            eng.submit("g", r, deadline_s=0.0)
+        assert torch.equal(eng.poll()["g"], ref)
+    pl = eng.placer.placement_of("g")
+    assert pl.kind == REPLICATED and len(pl.device_indices) == 3, pl
+    seen = _forbid_stack_in_dispatch(eng, monkeypatch)
+    assert torch.equal(eng.serve_batch("g", reqs), ref)
+    victim = sorted(eng._graphs["g"].replicas)[0]
+    FAULTS.arm("replica_chunk", graph="g", device=victim, times=1)
+    assert torch.equal(eng.serve_batch("g", reqs), ref)
+    assert FAULTS.fired == [("replica_chunk", "g", victim)]
+    assert eng.counters["chunk_retries"] == 1 and seen == ["g", "g"]
+    assert eng.stats()["requests_copied"] == 0
+    _outstanding_settled(eng)
+
+
+def test_requests_copied_is_zero_for_requests_on_the_engine_device(tmp_path):
+    w = _workload(63)
+    eng = _engine(tmp_path, max_batch=2)
+    eng.add_graph("g", w.a, w.params)
+    eng.serve_batch("g", [w.x, torch.from_numpy(w.x)])  # host arrays: the CPU's own
+    eng.serve_batch("g", torch.from_numpy(np.stack([w.x, w.x])))
+    eng.infer("g", w.x)
+    eng.submit("g", w.x)
+    eng.submit("g", w.x * 0.5)
+    assert eng.counters["requests"] == 7
+    assert eng.stats()["requests_copied"] == 0
 
 
 # ---------------------------------------------------------------------------
