@@ -38,15 +38,27 @@ import contextlib
 import dataclasses
 import math
 import random
+import sys
 import time
 from collections import deque
 from typing import Callable, List, NamedTuple, Optional
+
+import torch
 
 CLOSED, POISSON = "closed", "poisson"
 #: longest nap of the open loop between two polls of an idle engine
 NAP_S = 0.0005
 #: the seed of the arrivals' one order (``exponential_gaps``)
 ARRIVAL_ORDER = 0
+
+
+def log(msg: str) -> None:
+    print(f"[cardbench] {msg}", file=sys.stderr, flush=True)
+
+
+def sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,7 +7,9 @@ from cardbench import work
 
 
 def read(run):
-    if run.events is None or run.window_s <= 0 or not run.completed_in_window:
+    f = run.fields
+    if (run.events is None or run.window_s <= 0 or not run.completed_in_window
+            or "dims" not in f):
         return None
-    flops = run.completed_in_window * work.request_flops(run.n, run.nnz, run.dims)
+    flops = run.completed_in_window * work.request_flops(f["n"], f["nnz"], f["dims"])
     return 100.0 * flops / (run.window_s * work.TF32_FLOPS_PER_S)

@@ -4,4 +4,5 @@ utilization), as ``add_graph`` reports it in its tuned config."""
 
 
 def read(run):
-    return 100.0 * run.schedule_utilization
+    u = run.fields.get("schedule_utilization")
+    return None if u is None else 100.0 * u

@@ -8,11 +8,12 @@ from cardbench import spans, work
 
 
 def read(run):
-    if run.events is None or not run.batch_sizes:
+    f = run.fields
+    if run.events is None or not run.batch_sizes or "dims" not in f:
         return None
     us = spans.device_us_within(run.events, "executor.spmm")
     if not us:
         return None
-    bound = sum(work.batch_spmm_bound_s(run.n, run.nnz, run.dims, b)
+    bound = sum(work.batch_spmm_bound_s(f["n"], f["nnz"], f["dims"], b)
                 for b in run.batch_sizes)
     return 100.0 * bound / (us / 1e6)

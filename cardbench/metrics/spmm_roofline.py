@@ -9,11 +9,12 @@ SPMM = r"spmm_step_kernel|epilogue_kernel"
 
 
 def read(run):
-    if run.events is None or not run.batch_sizes:
+    f = run.fields
+    if run.events is None or not run.batch_sizes or "dims" not in f:
         return None
     us, count = trace.matching_us(run.events, SPMM)
     if not count:
         return None
-    bound = sum(work.batch_spmm_bound_s(run.n, run.nnz, run.dims, b)
+    bound = sum(work.batch_spmm_bound_s(f["n"], f["nnz"], f["dims"], b)
                 for b in run.batch_sizes)
     return 100.0 * bound / (us / 1e6)

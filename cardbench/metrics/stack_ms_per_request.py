@@ -1,7 +1,8 @@
-"""Device ms of the engine's batch copy a request took in the window: the
-device time inside the program's ``gcn_engine.stack`` ranges (the
-``torch.stack`` of a batch's requests into one operand) over the requests
-answered in it."""
+"""Device ms of the engine's batch assembly a request took in the window:
+the device time inside the program's ``gcn_engine.stack`` ranges (a
+batch's requests validated and gathered as they came, with no copy) over
+the requests answered in it. It reads 0.0 while the assembly launches
+nothing on the card; a change that copies a batch again shows here."""
 
 from cardbench import spans
 

@@ -2,15 +2,17 @@
 
     python3 cardbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-Set-up (the cell's inputs from ``--seed``, the engine, the graph's
-admission, a warm-up at the window's batch sizes), then ``--seconds`` of the
-cell's traffic through ``repro_torch.serving.gcn_engine.GCNServingEngine``,
-then the check: a sample of the window's answers, drawn from the seed,
-against the plain reference. The last line of standard output is one JSON
-object: ``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's
-end-to-end metrics, or with ``--trace 1`` its per-layer ones), ``device``,
-with ``--trace 1`` a ``breakdown``, and last ``checks``: each number
-compared beside its limit, which also end standard error.
+Set-up (the cell's configuration names its model family: its reference
+module, ``families/<family>_reference.py``, makes the inputs from
+``--seed``, and its adapter, ``families/<family>.py``, sets the program up
+with them; then a warm-up at the window's batch sizes), then ``--seconds``
+of the cell's traffic through the program, then the family's check: a
+sample of the window's answers, drawn from the seed, against its plain
+reference, from the inputs and the answers alone. The last line of standard output is one
+JSON object: ``correct``, ``attempted``, ``failed``, ``metrics`` (the
+cell's end-to-end metrics, or with ``--trace 1`` its per-layer ones),
+``device``, with ``--trace 1`` a ``breakdown``, and last ``checks``: each
+number compared beside its limit, which also end standard error.
 
 A run without a CUDA card, or with fewer cards than the cell asks for,
 fails and prints no result.
@@ -26,10 +28,8 @@ import argparse  # noqa: E402
 import gc  # noqa: E402
 import json  # noqa: E402
 import random  # noqa: E402
-import shutil  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
-import tempfile  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -37,21 +37,16 @@ for _p in (ROOT / "src", ROOT):
     if str(_p) not in sys.path:
         sys.path.insert(0, str(_p))
 
-import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from cardbench import inputs, load, reference, spec, trace  # noqa: E402
+from cardbench import load, spec, trace  # noqa: E402
+from cardbench.load import log, sync  # noqa: E402
 
 #: top-level module names that may not be loaded in the process that
 #: prints a result: JAX and the JAX package the port was made from
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 #: answers kept for the check, drawn from the seed among all the window's
 SAMPLE = 16
-GRAPH_ID = "cell"
-
-
-def log(msg: str) -> None:
-    print(f"[cardbench] {msg}", file=sys.stderr, flush=True)
 
 
 def forbidden_modules() -> list:
@@ -68,83 +63,6 @@ def power_limit() -> str | None:
     return out.strip().splitlines()[0] if out.strip() else None
 
 
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
-class Served:
-    """One configuration's graph admitted to a fresh engine, with its
-    weights and pool of requests. ``calls`` are the engine's calls for the
-    generator; they note the size of every batch the engine completes
-    while ``counting`` (from its ``batches`` and ``requests`` counters).
-    ``close`` drops the engine and its tuning store."""
-
-    def __init__(self, cfg: dict, mix: load.Mix, seed: int, dev: torch.device):
-        from repro_torch.core import csc
-        from repro_torch.serving.gcn_engine import GCNServingEngine
-
-        self.dev, self.deadline_s = dev, mix.deadline_s
-        serving = cfg["serving"]
-        t = time.perf_counter()
-        self.g, self.ws, self.pool = inputs.cell(
-            cfg, mix.pool_size(serving["max_batch"]), seed, dev)
-        _sync(dev)
-        log(f"graph of {self.g.n} nodes, {self.g.nnz} non-zeros, weights and "
-            f"{len(self.pool)} requests in {time.perf_counter() - t:.3f} s")
-        self.store_dir = tempfile.mkdtemp(prefix="cardbench-store-")
-        self.eng = GCNServingEngine(
-            store_root=self.store_dir, device=dev, max_batch=serving["max_batch"],
-            device_budget_bytes=serving["device_budget_bytes"],
-            autotune_kwargs={"sweep": [serving["candidate"]], "bf16_report": False})
-        t = time.perf_counter()
-        # the generator's arrays are row-major sorted already: the COO that
-        # ``csc.coo_from_arrays`` would make, without its 23M-key lexsort
-        g = self.g
-        coo = csc.COO(torch.from_numpy(g.rows.astype(np.int32)),
-                      torch.from_numpy(g.cols.astype(np.int32)),
-                      torch.from_numpy(g.vals), (g.n, g.n))
-        self.admit = self.eng.add_graph(
-            GRAPH_ID, coo, {f"w{i}": w for i, w in enumerate(self.ws)})
-        log(f"add_graph in {time.perf_counter() - t:.3f} s, "
-            f"{self.eng.store.nbytes()} bytes written to its store: "
-            f"{self.admit.config}")
-        self.counting, self.sizes = False, []
-        self._b, self._r = self.eng.counters["batches"], self.eng.counters["requests"]
-        self.calls = load.Engine(self._submit, self._poll, self._flush)
-
-    def _note(self):
-        b, r = self.eng.counters["batches"], self.eng.counters["requests"]
-        if self.counting and b > self._b:
-            per, rem = divmod(r - self._r, b - self._b)
-            self.sizes += [per + (i < rem) for i in range(b - self._b)]
-        self._b, self._r = b, r
-
-    def _submit(self, x):
-        ok = self.eng.submit(GRAPH_ID, x, deadline_s=self.deadline_s).accepted
-        self._note()
-        return ok
-
-    def _poll(self):
-        out = self.eng.poll().get(GRAPH_ID)
-        self._note()
-        return out
-
-    def _flush(self):
-        out = self.eng.flush().get(GRAPH_ID)
-        self._note()
-        return out
-
-    def close(self) -> None:
-        # the engine's references are the only ones to its executors and
-        # uploads: dropping it frees them, queued requests or not
-        self.eng = self.calls = None
-        shutil.rmtree(self.store_dir, ignore_errors=True)
-        gc.collect()
-        if self.dev.type == "cuda":
-            torch.cuda.empty_cache()
-
-
 def run_cell(name: str, seed: int, seconds: float, traced: bool, *,
              root: Path = ROOT, device="cuda", t_start: float = T_START,
              config_over: dict | None = None) -> dict:
@@ -154,6 +72,7 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, *,
     bench = spec.benchmark(root)
     cell = spec.workload(bench, name)
     cfg = {**spec.config(bench, cell["config"], root), **(config_over or {})}
+    family = spec.family(cfg, root)
     mix = load.Mix.from_dict(spec.traffic(cell["traffic"], root))
     metrics = spec.cell_metrics(bench, name, traced)
     readers = {m["name"]: spec.reader(m["name"], root) for m in metrics}
@@ -169,11 +88,16 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, *,
         if slot < SAMPLE:
             kept[slot] = (idx, out.clone())
 
-    s = Served(cfg, mix, seed, dev)
+    t = time.perf_counter()
+    inp = family.reference.inputs(cfg, mix.pool_size(cfg["serving"]["max_batch"]),
+                                  seed, dev)
+    sync(dev)
+    log(f"inputs with {len(inp.pool)} requests in {time.perf_counter() - t:.3f} s")
+    s = family.adapter.serve(cfg, mix, inp, dev)
     try:
         t = time.perf_counter()
-        load.warm_up(s.calls, s.pool, mix.warmup_rounds)
-        _sync(dev)
+        load.warm_up(s.calls, inp.pool, mix.warmup_rounds)
+        sync(dev)
         log(f"warm-up in {time.perf_counter() - t:.3f} s")
         # what set-up made lives as long as the server: freeze it, so that a
         # full collection in the window scans only what the window made (a
@@ -191,11 +115,11 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, *,
             prof.__enter__()
             span = record_function
         setup_s = time.perf_counter() - t_start
-        loop = load.loop(mix, s.calls, s.pool, seed, on_answer=keep, span=span)
+        loop = load.loop(mix, s.calls, inp.pool, seed, on_answer=keep, span=span)
         s.counting = True
         try:
             loop.run(seconds)
-            _sync(dev)
+            sync(dev)
         finally:
             s.counting = False
             gc.unfreeze()
@@ -207,30 +131,25 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, *,
             f"{loop.attempted} sent, {loop.failed} failed, {len(s.sizes)} batches, "
             f"generator late by {1e3 * getattr(loop, 'lateness_s', 0.0):.3f} ms "
             f"at most")
+        fields = s.run_fields()
     finally:
         s.close()
 
     t = time.perf_counter()
-    g = s.g
-    err = float("inf") if not kept else 0.0
-    rows, cols = (torch.from_numpy(a).to(dev) for a in (g.rows, g.cols))
-    vals = torch.from_numpy(g.vals).to(dev)
-    for idx in sorted({idx for idx, _ in kept.values()}):
-        ref = reference.gcn_logits(rows, cols, vals, g.n, s.pool[idx], s.ws)
-        for i, out in kept.values():
-            if i == idx:
-                err = max(err, reference.rel_err(out, ref))
+    found = family.reference.check(inp, list(kept.values()))
     log(f"reference over {len(kept)} answers in {time.perf_counter() - t:.3f} s")
-    checks = {"logits_rel_err": {"value": err,
-                                 "limit": cfg["limits"]["logits_rel_err"]},
-              "failed": {"value": loop.failed, "limit": 0}}
+    if not found or set(found) != set(cfg["limits"]):
+        raise ValueError(f"family {cfg['family']!r} checked {sorted(found)}; the "
+                         f"configuration's limits are {sorted(cfg['limits'])}")
+    checks = {k: {"value": v, "limit": cfg["limits"][k]} for k, v in found.items()}
+    checks["failed"] = {"value": loop.failed, "limit": 0}
     correct = all(c["value"] <= c["limit"] for c in checks.values())
 
     events = trace.from_profiler(prof) if prof is not None else None
-    run = spec.Run(n=g.n, nnz=g.nnz, dims=inputs.dims(cfg), setup_s=setup_s,
-                   window_s=loop.seconds, completed_in_window=loop.completed_in_window,
-                   latencies_s=loop.latencies_s, batch_sizes=s.sizes,
-                   schedule_utilization=s.admit.config.utilization, events=events)
+    run = spec.Run(setup_s=setup_s, window_s=loop.seconds,
+                   completed_in_window=loop.completed_in_window,
+                   latencies_s=loop.latencies_s, batch_sizes=s.sizes, events=events,
+                   fields=fields)
     values = {}
     for m in metrics:
         v = readers[m["name"]](run)

@@ -14,7 +14,9 @@ are the program's contract with these readers, kept here as strings
   for at most the requests queued at the window's end.
 - ``gcn_engine.dispatch``, ``gcn_engine.await``: a batch's dispatch and the
   wait for its completion (host ranges; the idle gaps' labels).
-- ``gcn_engine.stack``: the copy of a batch's requests into one operand.
+- ``gcn_engine.stack``: a batch's assembly: its requests validated and
+  gathered as they came, with no copy (the name is kept from when the
+  range held the ``torch.stack`` of a batch into one operand).
 - ``executor.xw``, ``executor.spmm``, ``executor.layout``: one layer's X·W
   products, its sparse product, and the layout copies around the latter.
 

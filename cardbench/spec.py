@@ -3,8 +3,11 @@ the checkout ties a cell to its configuration file, its traffic mix
 (``cardbench/traffic/<mix>.json``, or a module ``<mix>.py`` where the mix
 needs a generator of its own) and its metrics, each of which is a
 reader of its own (``cardbench/metrics/<metric>.py``, a function
-``read(run) -> float | None``). A later change adds a cell, a configuration,
-a mix or a metric as new files and entries, and edits none of these.
+``read(run) -> float | None``). The configuration names its model family,
+two modules of its own (``cardbench/families/<family>.py`` and
+``<family>_reference.py``, whose contract ``cardbench/families/__init__.py``
+states). A later change adds a cell, a configuration, a family, a mix or a
+metric as new files and entries, and edits none of these.
 """
 
 from __future__ import annotations
@@ -12,8 +15,9 @@ from __future__ import annotations
 import dataclasses
 import importlib.util
 import json
+import sys
 from pathlib import Path
-from typing import Callable, List, Optional
+from typing import Callable, List, NamedTuple, Optional
 
 ROOT = Path(__file__).resolve().parents[1]
 BENCH_DIR = "cardbench"
@@ -39,10 +43,15 @@ def config(bench: dict, name: str, root: Path = ROOT) -> dict:
 
 
 def _module(path: Path, prefix: str):
+    """The module of the file ``path``, loaded by path (a checkout's own
+    file, not the one ``sys.path`` finds), as ``<prefix>_<stem>``."""
     spec = importlib.util.spec_from_file_location(f"{prefix}_{path.stem}", path)
     if spec is None or spec.loader is None:
         raise FileNotFoundError(f"no module at {path}")
     mod = importlib.util.module_from_spec(spec)
+    # registered before it runs, as an import does: a dataclass looks its
+    # module up there
+    sys.modules[spec.name] = mod
     spec.loader.exec_module(mod)
     return mod
 
@@ -56,6 +65,33 @@ def traffic(name: str, root: Path = ROOT) -> dict:
         mod = _module(path, "cardbench_traffic")
         return dict(mod.MIX, loop=mod.loop)
     return json.loads(path.with_suffix(".json").read_text())
+
+
+class Family(NamedTuple):
+    """A model family's two modules (``cardbench/families/__init__.py``):
+    ``adapter`` sets the program up and serves, ``reference`` makes the
+    inputs and judges the answers."""
+    adapter: object
+    reference: object
+
+
+def family(cfg: dict, root: Path = ROOT) -> Family:
+    """The modules of the configuration's model family,
+    ``cardbench/families/<family>.py`` and ``<family>_reference.py``.
+    Raises ``KeyError``, naming the families present, where the
+    configuration names none that has both."""
+    name = cfg.get("family")
+    where = Path(root) / BENCH_DIR / "families"
+    paths = (where / f"{name}.py", where / f"{name}_reference.py")
+    if not (isinstance(name, str) and name.isidentifier()
+            and not name.startswith("_") and all(p.exists() for p in paths)):
+        present = sorted(p.stem for p in where.glob("*.py")
+                         if not p.stem.startswith("_")
+                         and p.with_name(f"{p.stem}_reference.py").exists())
+        raise KeyError(f"configuration {cfg.get('name')!r} names the family "
+                       f"{name!r}, which has no {name}.py and {name}_reference.py "
+                       f"in {BENCH_DIR}/families/; the families present: {present}")
+    return Family(*(_module(p, "cardbench_family") for p in paths))
 
 
 def _applies(metric: dict, cell: str) -> bool:
@@ -91,14 +127,15 @@ class Run:
 
     Counts are of the measured window. ``batch_sizes`` lists the batches the
     engine served in it; ``events`` holds the traced window's records
-    (``cardbench.trace.Event``), None without ``--trace 1``."""
-    n: int
-    nnz: int
-    dims: List[int]
+    (``cardbench.trace.Event``), None without ``--trace 1``. ``fields``
+    holds the family's own numbers (its served object's ``run_fields()``;
+    the GCN family's are ``n``, ``nnz``, ``dims`` and
+    ``schedule_utilization``): a reader whose keys a run lacks reads
+    nothing."""
     setup_s: float
     window_s: float
     completed_in_window: int
     latencies_s: List[float]
     batch_sizes: List[int]
-    schedule_utilization: float
     events: Optional[list] = None
+    fields: dict = dataclasses.field(default_factory=dict)

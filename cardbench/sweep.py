@@ -1,15 +1,16 @@
 """Find the highest Poisson arrival rate a configuration's engine sustains:
 the knee that an open-loop cell's fixed rate is set from.
 
-    python3 cardbench/sweep.py --config gcn-reddit --rates 120 160 180 200 --seconds 10
+    python3 cardbench/sweep.py --config <config> --rates 120 160 180 200 --seconds 10
 
-One set-up (inputs from ``--seed``, one engine, the graph admitted, a
-warm-up), then each rate in turn for ``--seconds``: Poisson arrivals, each
-request with ``--deadline`` seconds, its latency from the moment it was
-due. A rate is sustained when the p95 meets the deadline and the backlog
-does not grow: no more than two batches' requests are left unanswered at
-the window's end. One JSON line per rate, then the knee. The benchmark's
-own runs never run this.
+One set-up (the configuration's family serves: its inputs from ``--seed``
+and the program set up with them; a warm-up), then each rate in turn for
+``--seconds``: Poisson arrivals, each request with ``--deadline`` seconds,
+its latency from the moment it was due. A rate is sustained when the p95
+meets the deadline and the backlog does not grow: no more than two
+batches' requests (``serving.max_batch`` of the configuration) are left
+unanswered at the window's end. One JSON line per rate, then the knee.
+The benchmark's own runs never run this.
 """
 
 from __future__ import annotations
@@ -37,18 +38,19 @@ def percentile(values, q: float) -> float:
 
 def sweep(cfg: dict, rates, seconds: float, deadline_s: float, seed: int, device,
           pool: int = 8, warmup_rounds: int = 2) -> list:
-    from cardbench import run
-
     mix = load.Mix(arrivals=load.POISSON, deadline_s=deadline_s,
                    warmup_rounds=warmup_rounds, rate_per_s=max(rates), pool=pool)
-    s = run.Served(cfg, mix, seed, torch.device(device))
+    family, dev = spec.family(cfg), torch.device(device)
+    inp = family.reference.inputs(cfg, mix.pool_size(cfg["serving"]["max_batch"]),
+                                  seed, dev)
+    s = family.adapter.serve(cfg, mix, inp, dev)
     lines = []
     try:
-        load.warm_up(s.calls, s.pool, warmup_rounds)
+        load.warm_up(s.calls, inp.pool, warmup_rounds)
         for i, rate in enumerate(rates):
             s.sizes = []
             s.counting = True
-            loop = load.OpenLoop(s.calls, s.pool, rate_per_s=rate, seed=seed + i)
+            loop = load.OpenLoop(s.calls, inp.pool, rate_per_s=rate, seed=seed + i)
             loop.run(seconds)
             s.counting = False
             loop.drain()

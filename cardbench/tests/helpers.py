@@ -22,12 +22,13 @@ def tiny_config(**over) -> dict:
 
 
 def tiny_root(tmp: Path, **over) -> Path:
-    """A copy of the benchmark's metrics and traffic with one small cell,
-    ``tiny.saturate``, under ``tmp``."""
+    """A copy of the benchmark's metrics, traffic and families with one
+    small cell, ``tiny.saturate``, under ``tmp``."""
     bench_dir = tmp / "cardbench"
     (bench_dir / "configs").mkdir(parents=True)
-    shutil.copytree(HERE / "metrics", bench_dir / "metrics")
-    shutil.copytree(HERE / "traffic", bench_dir / "traffic")
+    for part in ("metrics", "traffic", "families"):
+        shutil.copytree(HERE / part, bench_dir / part,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     (bench_dir / "configs" / "tiny.json").write_text(json.dumps(tiny_config(**over)))
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     bench["configs"] = [dict(bench["configs"][0], name="tiny",

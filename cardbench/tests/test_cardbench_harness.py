@@ -1,6 +1,7 @@
 """The harness end to end on the CPU at a small size: a cell found by name,
-a cell added as new files only, faults planted under the timed path that
-``correct`` has to catch, and the command's refusal without a card."""
+a cell and a model family added as new files only, faults planted under the
+timed path that ``correct`` has to catch, and the command's refusal without
+a card."""
 
 import json
 import subprocess
@@ -9,7 +10,7 @@ import sys
 import pytest
 import torch
 
-from cardbench import load, run, spec, sweep
+from cardbench import inputs, load, run, spec, sweep
 from cardbench.tests import helpers
 from repro_torch.core.executor import ScheduleExecutor
 
@@ -61,6 +62,195 @@ def test_a_config_a_mix_and_a_metric_added_as_files_are_found(tmp_path):
     assert r["correct"]
     assert set(r["metrics"]) == {"answered"}
     assert r["metrics"]["answered"]["value"] > 0
+
+
+TOY_REFERENCE = """
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass
+class Inputs:
+    w0: torch.Tensor
+    w1: torch.Tensor
+    pool: list
+
+
+def inputs(cfg, clients, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    f, h, c = cfg["features"], cfg["hidden"], cfg["classes"]
+    w0 = torch.randn((f, h), generator=g, device=device)
+    w1 = torch.randn((h, c), generator=g, device=device)
+    pool = [torch.randn((cfg["rows"], f), generator=g, device=device)
+            for _ in range(clients)]
+    return Inputs(w0, w1, pool)
+
+
+def check(inp, kept):
+    err = float("inf") if not kept else 0.0
+    for idx, out in kept:
+        ref = torch.mm(torch.mm(inp.pool[idx], inp.w0).clamp_min(0.0), inp.w1)
+        if out.shape != ref.shape:
+            return {"out_rel_err": float("inf")}
+        err = max(err, float((out - ref).abs().max() / ref.abs().max()))
+    return {"out_rel_err": err}
+"""
+
+TOY_FAMILY = """
+import torch
+
+from cardbench import load
+
+
+class Queue:
+    def __init__(self, cfg, inp):
+        self.w0, self.w1, self.rows = inp.w0, inp.w1, cfg["rows"]
+        self.max_batch = cfg["serving"]["max_batch"]
+        self.queue, self.done = [], []
+        self.counting, self.sizes = False, []
+        self.calls = load.Engine(self.submit, self.poll, self.flush)
+
+    def _serve(self):
+        xs, self.queue = self.queue, []
+        if xs:
+            out = torch.relu(torch.stack(xs) @ self.w0) @ self.w1
+            self.done.append(out)
+            if self.counting:
+                self.sizes.append(len(xs))
+
+    def submit(self, x):
+        self.queue.append(x)
+        if len(self.queue) >= self.max_batch:
+            self._serve()
+        return True
+
+    def poll(self):
+        if not self.done:
+            return None
+        out, self.done = torch.cat(self.done), []
+        return out
+
+    def flush(self):
+        self._serve()
+        return self.poll()
+
+    def run_fields(self):
+        return {"rows": self.rows}
+
+    def close(self):
+        self.queue = self.done = self.calls = None
+
+
+def serve(cfg, mix, inp, device):
+    return Queue(cfg, inp)
+"""
+
+#: a metric of the toy family's own, read from its ``run_fields``
+TOY_METRIC = """
+def read(run):
+    rows = run.fields.get("rows")
+    if rows is None or run.window_s <= 0:
+        return None
+    return rows * run.completed_in_window / run.window_s
+"""
+
+TOY_CELL = "toy.saturate"
+
+
+def _toy_root(tmp_path, family=TOY_FAMILY, reference=TOY_REFERENCE):
+    """``tiny_root`` with a second family added as files only: a dense
+    two-layer MLP behind a queue (``families/toy.py``), its own inputs and
+    plain reference (``families/toy_reference.py``), a metric of its own
+    (``metrics/toy_rows_per_s.py``), a configuration and a cell. A few of
+    the GCN family's per-layer metrics list the cell too; those that read
+    the GCN family's fields have nothing to read."""
+    root = helpers.tiny_root(tmp_path)
+    bench_dir = root / "cardbench"
+    (bench_dir / "families" / "toy.py").write_text(family)
+    (bench_dir / "families" / "toy_reference.py").write_text(reference)
+    (bench_dir / "metrics" / "toy_rows_per_s.py").write_text(TOY_METRIC)
+    (bench_dir / "configs" / "toy.json").write_text(json.dumps({
+        "name": "toy", "family": "toy", "rows": 8, "features": 12, "hidden": 16,
+        "classes": 5, "tf32": False, "serving": {"max_batch": 2},
+        "limits": {"out_rel_err": 1e-5}}))
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    bench["configs"].append(dict(bench["configs"][0], name="toy",
+                                 file="cardbench/configs/toy.json"))
+    bench["workloads"].append(dict(bench["workloads"][0], name=TOY_CELL,
+                                   config="toy"))
+    for m in bench["per_layer"]:
+        if m["name"] in ("batch_occupancy", "latency_p95_ms.saturate", "mfu",
+                         "schedule_utilization", "spmm_range_roofline"):
+            m["workloads"].append(TOY_CELL)
+    bench["per_layer"].append({
+        "name": "toy_rows_per_s", "unit": "rows/s", "better": "higher",
+        "source": "host_clock", "layer": "toy queue", "moves": "requests_per_s",
+        "workloads": [TOY_CELL]})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    return root
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_a_family_added_as_files_runs_and_is_correct(tmp_path, traced):
+    r = _run(_toy_root(tmp_path), traced=traced, cell=TOY_CELL)
+    assert r["correct"] and r["failed"] == 0 and r["attempted"] > 0
+    assert list(r["checks"]) == ["out_rel_err", "failed"]
+    assert r["checks"]["out_rel_err"]["value"] <= 1e-5
+    if traced:
+        assert set(r["metrics"]) == {"batch_occupancy", "latency_p95_ms.saturate",
+                                     "toy_rows_per_s"}
+        assert r["metrics"]["batch_occupancy"]["value"] == 2.0
+        assert r["metrics"]["toy_rows_per_s"]["value"] > 0
+        assert "busy_s" in r["device"] and "breakdown" in r
+    else:
+        assert set(r["metrics"]) == {"requests_per_s", "latency_p95_ms", "setup_s"}
+
+
+def test_a_fault_planted_in_a_familys_answers_makes_the_run_incorrect(tmp_path):
+    faulty = TOY_FAMILY.replace("@ self.w1\n", "@ self.w1 * (1 + 1e-3)\n")
+    assert faulty != TOY_FAMILY
+    r = _run(_toy_root(tmp_path, family=faulty), cell=TOY_CELL)
+    assert r["correct"] is False and r["failed"] == 0
+    assert r["checks"]["out_rel_err"]["value"] > 1e-5
+
+
+@pytest.mark.parametrize("found", ["{}", '{"out_rel_eror": err}',
+                                   '{"out_rel_err": err, "extra": 0.0}'],
+                         ids=["nothing", "another_name", "one_more"])
+def test_a_check_that_does_not_return_the_configurations_limits_is_refused(
+        tmp_path, found):
+    old = 'return {"out_rel_err": err}'
+    reference = TOY_REFERENCE.replace(old, f"return {found}")
+    assert reference != TOY_REFERENCE
+    with pytest.raises(ValueError, match=r"the configuration's limits are "
+                                         r"\['out_rel_err'\]"):
+        _run(_toy_root(tmp_path, reference=reference), cell=TOY_CELL)
+
+
+def test_an_unknown_family_fails_before_any_input_is_made(tmp_path, monkeypatch):
+    def made(*a, **kw):
+        raise AssertionError("inputs made for a configuration of no family")
+
+    monkeypatch.setattr(inputs, "cell", made)
+    root = helpers.tiny_root(tmp_path, family="nosuch")
+    with pytest.raises(KeyError, match=r"'nosuch'.*the families present: \['gcn'\]"):
+        _run(root)
+
+
+def test_a_family_module_without_the_whole_interface_is_refused(tmp_path, monkeypatch):
+    """An adapter without its reference module is no family: the run fails
+    before any input is made."""
+    def made(*a, **kw):
+        raise AssertionError("inputs made for a family without its reference")
+
+    monkeypatch.setattr(inputs, "cell", made)
+    root = helpers.tiny_root(tmp_path, family="half")
+    (root / "cardbench" / "families" / "half.py").write_text(
+        "def serve(cfg, mix, inp, device):\n    raise AssertionError\n")
+    with pytest.raises(KeyError, match=r"no half.py and half_reference.py.*"
+                                       r"the families present: \['gcn'\]"):
+        _run(root)
 
 
 EVEN_MIX = """

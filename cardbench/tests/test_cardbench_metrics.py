@@ -29,9 +29,10 @@ def _events():
 
 
 def _run(events=None, **over):
-    kw = dict(n=N, nnz=NNZ, dims=DIMS, setup_s=42.0, window_s=0.002,
-              completed_in_window=8, latencies_s=[0.01 * i for i in range(1, 21)],
-              batch_sizes=[4, 4], schedule_utilization=0.9375, events=events)
+    kw = dict(setup_s=42.0, window_s=0.002, completed_in_window=8,
+              latencies_s=[0.01 * i for i in range(1, 21)], batch_sizes=[4, 4],
+              events=events, fields=dict(n=N, nnz=NNZ, dims=DIMS,
+                                         schedule_utilization=0.9375))
     kw.update(over)
     return spec.Run(**kw)
 
@@ -102,6 +103,14 @@ def test_trace_readers_read_nothing_without_their_kernels(name):
     assert _read(name, _run(host_only)) is None
 
 
+@pytest.mark.parametrize("name", ["schedule_utilization", "mfu", "spmm_roofline",
+                                  "spmm_range_roofline"])
+def test_readers_of_the_gcn_fields_read_nothing_in_a_run_without_them(name):
+    kw = dict(setup_s=42.0, window_s=0.002, completed_in_window=8,
+              latencies_s=[0.01], batch_sizes=[4, 4], events=_events())
+    assert _read(name, spec.Run(**kw)) is None
+
+
 def test_every_metric_in_the_benchmark_has_a_reader():
     bench = spec.benchmark()
     for m in bench["end_to_end"] + bench["per_layer"]:
@@ -120,7 +129,9 @@ def test_a_split_metric_reads_with_its_quantitys_reader():
     ("gcn-reddit.poisson", False, {"latency_p95_ms", "setup_s"}),
     ("gcn-nell.saturate", True, {"latency_p95_ms.saturate", "batch_occupancy",
                                  "schedule_utilization", "xw_ms_per_request",
-                                 "spmm_roofline", "device_idle_share", "mfu"}),
+                                 "spmm_roofline", "device_idle_share", "mfu",
+                                 "stack_ms_per_request", "xw_range_ms_per_request",
+                                 "layout_ms_per_request", "spmm_range_roofline"}),
     ("gcn-reddit.poisson", True, {"batch_occupancy.poisson",
                                   "device_idle_share.poisson"}),
 ])

@@ -39,9 +39,9 @@ def _events(**names):
 
 
 def _run(events, **over):
-    kw = dict(n=N, nnz=NNZ, dims=DIMS, setup_s=42.0, window_s=0.002,
-              completed_in_window=8, latencies_s=[0.01], batch_sizes=[4, 4],
-              schedule_utilization=0.9375, events=events)
+    kw = dict(setup_s=42.0, window_s=0.002, completed_in_window=8,
+              latencies_s=[0.01], batch_sizes=[4, 4], events=events,
+              fields=dict(n=N, nnz=NNZ, dims=DIMS, schedule_utilization=0.9375))
     kw.update(over)
     return spec.Run(**kw)
 
